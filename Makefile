@@ -13,7 +13,7 @@ capi:
 
 capi-test: capi
 	$(MAKE) -C capi test_host
-	cd capi && FABBER_TPU_PLATFORM=cpu \
+	cd capi && JAX_PLATFORMS=cpu \
 	  FABBER_TPU_PYTHONPATH="$(CURDIR):$$(python -c 'import site; print(site.getsitepackages()[0])')" \
 	  ./test_host
 
@@ -21,7 +21,7 @@ bench:
 	python bench.py
 
 examples:
-	FABBER_TPU_PLATFORM=cpu PYTHONPATH=$(CURDIR) python examples/test_single.py
+	JAX_PLATFORMS=cpu PYTHONPATH=$(CURDIR) python examples/test_single.py
 
 clean:
 	$(MAKE) -C capi clean

@@ -1,4 +1,4 @@
-/* fabber_capi_tpu.cc - Pure C API for the TPU-native fabber framework.
+/* fabber_capi_tpu.cc - Pure C API for the JAX fabber framework.
  *
  * Native shared library for language bindings, with the same ABI shape
  * as the reference libfabbercore_shared (fabber_capi.h:40-279):

@@ -53,10 +53,6 @@ class MyExpModel(Model):
 
     def evaluate(self, params, ctx, key=""):
         # scalar indexing (not params[0::2], which traces to a gather)
-        # keeps this evaluate on the Mosaic-safe primitive set, so even
-        # WITHOUT the time_signal hook below the engine promotes the
-        # model to the whole-loop Pallas fast tier (docs/MIGRATION.md
-        # "Plugin models and the fast tiers")
         t = jnp.arange(ctx.nt, dtype=params.dtype) * self.dt
         sig = params[0] * jnp.exp(-params[1] * t)
         for i in range(1, self.num):
@@ -70,7 +66,8 @@ class MyExpModel(Model):
         return means
 
     def time_signal(self, params, t):
-        """Optional: time-local form unlocks the fused Pallas kernel."""
+        """Optional: time-local form unlocks the whole-loop kernel on a
+        GPU (docs/MIGRATION.md "Plugin models and the fast routes")."""
         tv = t * self.dt
         sig = params[0] * jnp.exp(-params[1] * tv)
         for i in range(1, self.num):

@@ -1,10 +1,10 @@
-"""fabber_core_tpu — a TPU-native Bayesian model-fitting framework.
+"""fabber_core_tpu — a JAX Bayesian model-fitting framework.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 physimals/fabber_core: analytic Variational Bayes over nonlinear forward
 models for 4-D timeseries volumes, batched over all voxels at once and
-sharded over TPU meshes, instead of the reference's serial per-voxel C++
-loop (reference: inference_vb.cc:423).
+sharded over device meshes, instead of the reference's serial per-voxel
+C++ loop (reference: inference_vb.cc:423).
 
 Key entry points:
   - fabber_core_tpu.api.FabberTpu().run_with_data(options, data)
@@ -14,43 +14,30 @@ Key entry points:
 # Double precision must be enabled before any JAX computation is traced.
 # The reference pipeline is entirely double-precision (NEWMAT); we keep
 # float64 as the parity default and use explicit float32/bfloat16 dtypes
-# on the TPU fast path.
+# where a run asks for speed.
 import os as _os
 
 import jax as _jax
 
 _jax.config.update("jax_enable_x64", True)
 
-# On TPU, JAX's DEFAULT matmul precision feeds f32 operands to the MXU
-# as single-pass bfloat16 — measured 2.5 posterior-sd drift (and ~4%
-# noise-precision error) in the sufficient-statistics matmuls vs the
-# same f32 program on CPU (round 4). This is a scientific-computing
-# package: every matmul/einsum must be true-f32 ("highest" = 3-pass
-# bf16 on the MXU). The MXU is never the bottleneck here (the routes
-# are HBM/VPU-bound), so the 3x pass cost is invisible end to end.
-# Override with FABBER_TPU_MATMUL_PRECISION if a study wants speed.
-_jax.config.update("jax_default_matmul_precision",
-                   _os.environ.get("FABBER_TPU_MATMUL_PRECISION",
-                                   "highest"))
+# On a GPU, JAX's DEFAULT matmul precision runs float32 products in TF32,
+# which keeps about three decimal digits: enough to move the sufficient
+# statistics' posterior means by a visible fraction of a posterior sd.
+# This is a scientific-computing package, so every matmul/einsum is
+# true float32. The routes are memory-bound, so the cost is invisible
+# end to end.
+_jax.config.update("jax_default_matmul_precision", "highest")
 
-# Some TPU plugins override the JAX_PLATFORMS env var during
-# registration; FABBER_TPU_PLATFORM pins the platform through the
-# config API, which always wins (e.g. =cpu for host-only tooling).
-if _os.environ.get("FABBER_TPU_PLATFORM"):
-    _jax.config.update("jax_platforms", _os.environ["FABBER_TPU_PLATFORM"])
+# Persistent compilation cache: JAX_COMPILATION_CACHE_DIR when set (JAX
+# reads it itself), else a fixed directory inside the checkout. Every
+# run builds its engine's programs anew, so a repeated run is only warm
+# if they come back from this cache: keep anything that took half a
+# second (the whole-loop GPU kernel compiles in about one).
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    from .devices import compile_cache_dir as _cache_dir
 
-# Persistent compilation cache: TPU compiles of the jitted VB loop can
-# take minutes (especially through remote-compile tunnels); cache them
-# across processes. Override location with FABBER_TPU_CACHE_DIR; set it
-# empty to disable.
-_cache_dir = _os.environ.get(
-    "FABBER_TPU_CACHE_DIR",
-    _os.path.join(_os.path.expanduser("~"), ".cache", "fabber_core_tpu"))
-if _cache_dir:
-    try:
-        _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
-    except Exception:  # older jax without these options
-        pass
+    _jax.config.update("jax_compilation_cache_dir", _cache_dir())
+_jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 from .version import __version__  # noqa: E402,F401

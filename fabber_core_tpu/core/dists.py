@@ -37,9 +37,8 @@ def chol_inv_logdet(mat):
     chol = jnp.linalg.cholesky(mat + jitter * eye)
     ok = jnp.all(jnp.isfinite(chol), axis=(-2, -1))
     logdet = 2.0 * jnp.sum(jnp.log(jnp.diagonal(chol, axis1=-2, axis2=-1)), axis=-1)
-    # Inverse via two triangular solves (TPU has no f64 LU kernel, and
-    # Cholesky-based inversion is both faster and what the symmetric
-    # structure calls for).
+    # Inverse via two triangular solves (Cholesky-based inversion is
+    # both faster than LU and what the symmetric structure calls for).
     eye_b = jnp.broadcast_to(eye, mat.shape)
     linv = jax.scipy.linalg.solve_triangular(chol, eye_b, lower=True)
     inv = jnp.einsum("...ki,...kj->...ij", linv, linv)

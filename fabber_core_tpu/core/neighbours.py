@@ -1,7 +1,7 @@
 """Voxel neighbour graphs for spatial (MRF) priors.
 
 Port of the *semantics* of Vb::CalcNeighbours (inference_vb.cc:769-964)
-into precomputed padded index arrays, the form a TPU gather wants:
+into precomputed padded index arrays, the form a device gather wants:
 
   neigh_idx  [V, 6]        first-neighbour voxel indices (pad -1)
   neigh2_idx [V, 30]       second neighbours including duplicates for

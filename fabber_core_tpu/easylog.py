@@ -1,6 +1,6 @@
 """Run logging with pre-start buffering and warn-once dedup.
 
-TPU-native equivalent of the reference's EasyLog (easylog.h:25-146):
+Equivalent of the reference's EasyLog (easylog.h:25-146):
 log lines are buffered until an output directory is chosen, warnings are
 deduplicated and re-issued at end of run.
 """

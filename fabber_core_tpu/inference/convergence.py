@@ -21,9 +21,7 @@ from ..options import OptionSpec, OPT_INT, OPT_FLOAT
 
 
 def _bsel(cond, a, b):
-    """Boolean select as logical ops: Mosaic cannot lower vector
-    selects on i1 operands (arith.trunci i8->i1), and these state
-    machines also run INSIDE Pallas kernels (ops/fused_whole.py)."""
+    """Boolean select as logical ops on the lane masks."""
     return (cond & a) | (~cond & b)
 
 

@@ -3,11 +3,11 @@
 Replaces the reference's per-voxel LinearizedFwdModel::ReCentre
 (fwdmodel_linear.cc:126-182) with a single vmapped evaluation +
 Jacobian over all voxels, with voxels on the *last* axis so results
-land directly in the engine's lane-tiled layout. Two Jacobian sources:
+land directly in the engine's voxels-last layout. Two Jacobian sources:
 
   * "auto" (default): jax.jacfwd through the latent->model transform
     and the model function — exact derivatives, one fused XLA
-    computation, and what a TPU-native design should use.
+    computation, and what a batched device design should use.
   * "fd": central finite differences with the reference's step rule
     delta = max(|m_i| * 1e-5, 1e-10), for bit-level parity testing
     against the C++ pipeline.

@@ -56,6 +56,7 @@ import numpy as np
 from ..models.base import resolve_parameters, PRIOR_IMAGE
 from ..ops import smallmat as sm
 from ..options import OptionSpec, OPT_BOOL, OPT_INT, OPT_STR
+from ..devices import planning_budget
 from .linearize import Linearizer
 from .vb import VBResult, _concat_results
 
@@ -129,11 +130,6 @@ class NLLSInference:
                        "Use Levenberg-Marquardt damping (default Levenberg)"),
             OptionSpec("nlls-max-iterations", OPT_INT,
                        "Maximum optimizer iterations", default="100"),
-            OptionSpec("nlls-phase1-iterations", OPT_INT,
-                       "Pallas-kernel tier: iteration cap of the first "
-                       "(full-volume) pass before straggler lanes are "
-                       "compacted and resumed (0 disables compaction)",
-                       default="32"),
             OptionSpec("fwd-initial-posterior", OPT_STR,
                        "MVN matrix file with initial parameter estimates"),
         ]
@@ -173,8 +169,6 @@ class NLLSInference:
         self.marquardt = options.get_bool("lm")
         self.vb_init = options.get_bool("vb-init")
         self.max_its = options.get_int("nlls-max-iterations", 100, minval=1)
-        self.phase1_its = options.get_int("nlls-phase1-iterations", 32,
-                                          minval=0)
 
         lin_mode = options.get_string("linearization", "auto")
         self.linearizer = Linearizer(model, self.params, self.nt,
@@ -191,33 +185,6 @@ class NLLSInference:
                 self.design = jnp.asarray(d, self.dtype)
         self.use_stats = self.design is not None
 
-        # Whole-loop Pallas tier for NONLINEAR (time-signal) models
-        # (ops/fused_nlls.py): the entire damped-GN loop on
-        # VMEM-resident state, model + Jacobian re-evaluated in-kernel
-        # — the generic XLA route re-materializes [P,T,V] planes per
-        # accept/reject step. Auto on TPU; engine-kernel=pallas-loop
-        # forces interpret mode off-TPU; =xla disables.
-        kernel_mode = options.get_string("engine-kernel", "auto")
-        self.use_nl_kernel = False
-        self.nlls_interpret = False
-        if (not self.use_stats
-                and hasattr(model, "time_signal")
-                and lin_mode == "auto"
-                and self.suppdata is None
-                and jnp.dtype(self.dtype) == jnp.dtype(jnp.float32)
-                and options.get_string("fwd-initial-posterior",
-                                       "modeldefault") == "modeldefault"
-                and kernel_mode in ("auto", "pallas-loop")):
-            from ..ops.fused_nlls import pick_nlls_block
-            from ..ops.fused_vb import pad_time
-            ok = pick_nlls_block(1024, self.nparams,
-                                 pad_time(self.nt)) is not None
-            if kernel_mode == "pallas-loop":
-                self.use_nl_kernel = ok
-                self.nlls_interpret = jax.default_backend() != "tpu"
-            else:
-                self.use_nl_kernel = ok \
-                    and jax.default_backend() == "tpu"
         if self.use_stats:
             # host-f64 eigenbasis of the damp-whitened Gram (module
             # docstring): z = Bz d, grad coords Bg jtr, d = Bback z
@@ -242,9 +209,6 @@ class NLLSInference:
         if self.use_stats:
             return ("fixed-design sufficient-statistics NLLS "
                     "(P-dim LM loop in the damp-whitened eigenbasis)")
-        if self.use_nl_kernel:
-            return ("whole-loop nonlinear NLLS Pallas kernel "
-                    "(in-kernel model re-evaluation)")
         return "generic-Jacobian NLLS (per-iteration linearization)"
 
     def initial_means(self):
@@ -399,8 +363,6 @@ class NLLSInference:
     def _solve_body(self, p0, bind):
         if self.use_stats:
             return self._solve_body_eigen(p0, bind)
-        if self.use_nl_kernel:
-            return self._solve_body_nl_kernel(p0, bind)
         stats = None
         nv = bind.data.shape[1]
         s0 = NLLSState(
@@ -422,86 +384,6 @@ class NLLSInference:
                            jnp.maximum(d, PREC_DIAG_FLOOR))
         chol, _ = sm.cholesky_jittered(prec)
         cov = sm.inverse_from_chol(chol)
-        return s, prec, cov
-
-    def _solve_body_nl_kernel(self, p0, bind):
-        """Whole-loop Pallas NLLS (ops/fused_nlls.py) for time-signal
-        models: one data read per voxel tile, every optimizer step on
-        VMEM-resident state. Under a voxel mesh the kernel dispatches
-        per-shard via shard_map (the VB kernels' convention)."""
-        from ..ops.fused_nlls import make_fused_nlls_loop, pick_nlls_block
-        from ..ops.fused_vb import pad_time
-        from .vb import _shard_kernel
-
-        nv = bind.data.shape[1]
-        p = self.nparams
-        tp = pad_time(self.nt)
-        tmask_np = np.asarray(self.tmask, np.float32).reshape(-1)
-        tsj = getattr(self.model, "time_signal_jac", None)
-        transforms = [pm.transform for pm in self.params]
-
-        data = bind.data.astype(self.dtype)
-        if tp != self.nt:
-            # padded rows carry zero weight in the kernel's mask column
-            # (time axis is unsharded, so this is mesh-safe)
-            data = jnp.concatenate(
-                [data] + [data[-1:]] * (tp - self.nt), axis=0)
-
-        def run_local(p0_l, data_l):
-            nv_l = p0_l.shape[-1]
-            block, pad = pick_nlls_block(nv_l, p, tp)
-            nv_p = nv_l + pad
-
-            def pad_v(x):
-                if pad and x.shape[-1] == nv_l:
-                    width = [(0, 0)] * (x.ndim - 1) + [(0, pad)]
-                    return jnp.pad(x, width, mode="edge")
-                return x
-
-            def make(its, **kw):
-                return make_fused_nlls_loop(
-                    self.model.time_signal, transforms, p, self.nt,
-                    its, nv_p, self.dtype, tmask_np,
-                    marquardt=self.marquardt, block=block,
-                    interpret=self.nlls_interpret,
-                    time_signal_jac=tsj, **kw)
-
-            cap = self.phase1_its
-            p0_p, data_p = pad_v(p0_l), pad_v(data_l)
-            if cap == 0 or self.max_its <= cap:
-                outs = make(self.max_its)(p0_p, data_p)
-            else:
-                # Two-phase straggler compaction: a handful of
-                # degenerate lanes (flat cost valleys) per 2048-lane
-                # tile otherwise pin EVERY tile at the iteration cap
-                # (measured ~95% of the nllsinit pipeline). Phase 1
-                # caps the full-volume pass; lanes are then sorted by
-                # convergence state so the stragglers pack densely
-                # into the first tiles of a resumed phase 2 (exact
-                # lambda/cost/iteration continuation — outcome
-                # identical to the single-phase kernel). All-done
-                # tiles skip the phase-2 loop, paying only HBM reads.
-                params1, state1 = make(cap, posterior=False)(
-                    p0_p, data_p)
-                order = jnp.argsort(state1[2])
-                inv = jnp.argsort(order)
-                outs2 = make(self.max_its - cap, resume=True)(
-                    params1[:, order], data_p[:, order],
-                    state1[:, order])
-                outs = tuple(o[..., inv] for o in outs2)
-            if pad:
-                outs = tuple(o[..., :nv_l] for o in outs)
-            return outs
-
-        dispatch = _shard_kernel(
-            getattr(self, "mesh", None), run_local,
-            in_vox_dims=(2, 2), out_vox_dims=(2, 1, 1, 3, 3))
-        params, cost, its, prec, cov = dispatch(p0, data)
-        s = NLLSState(params=params, cost=cost,
-                      lam=jnp.zeros(nv, self.dtype),
-                      done=jnp.ones(nv, bool),
-                      it=jnp.array(self.max_its, jnp.int32),
-                      its=its.astype(jnp.int32))
         return s, prec, cov
 
     def _solve_body_eigen(self, p0, bind):
@@ -586,23 +468,18 @@ class NLLSInference:
     def _chunk_size(self):
         """Voxels per device pass (memory-bounded execution at any
         volume size, mirroring the VB engine's convention)."""
-        import os as _os
         explicit = self.options.get_int("voxel-chunk-size", 0)
         if explicit > 0:
             return explicit
         item = jnp.dtype(self.dtype).itemsize
         p, t = self.nparams, self.nt
-        if getattr(self, "use_nl_kernel", False):
-            # in-kernel loop: data plane + posterior outputs only
-            per_vox = (2 * t + 3 * p * p + 6 * p + 16) * item
-        elif self.use_stats:
+        if self.use_stats:
             # one [T,V] stats pass; loop temps are P-dim planes
             per_vox = (3 * t + 8 * p * p + 10 * p + 24) * item
         else:
             # per-iteration [P,T,V] Jacobian + autodiff intermediates
             per_vox = (t * (3 * p + 8) + 6 * p * p + 10 * p + 24) * item
-        budget = float(_os.environ.get("FABBER_TPU_MEM_GB", 8)) * 1e9
-        return max(16384, int(budget / per_vox))
+        return max(16384, int(planning_budget() / per_vox))
 
     def run(self):
         traced = self._can_trace_init()

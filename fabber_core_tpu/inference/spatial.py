@@ -7,7 +7,7 @@ a per-voxel prior built from neighbouring posterior means, and a single
 global spatial-precision scalar aK per parameter updated once per sweep
 from a whole-volume reduction (Penny 2005 Fig 4).
 
-TPU-first design notes:
+Design notes:
   * The reference updates posteriors in place while sweeping voxels
     lexicographically (Gauss-Seidel-ish). Here the sweep is a *Jacobi*
     iteration: every voxel's spatial prior reads the previous sweep's
@@ -23,7 +23,6 @@ TPU-first design notes:
     rather than by list surgery.
 """
 
-import os as _os
 from typing import NamedTuple
 
 import jax
@@ -36,6 +35,7 @@ from ..models.base import (PRIOR_SPATIAL_M, PRIOR_SPATIAL_m,
                            PRIOR_SPATIAL_P, PRIOR_SPATIAL_p)
 from ..options import OptionSpec, OPT_INT, OPT_STR, OPT_BOOL, OPT_FLOAT
 from ..ops import smallmat as sm
+from ..devices import device_memory_limit
 from .vb import (VBInference, VBLoopState, PosteriorState,
                  _lane_where)
 
@@ -95,7 +95,7 @@ class SpatialVBInference(VBInference):
             OptionSpec("spatial-mem-gb", OPT_FLOAT,
                        "Device memory budget for the capacity "
                        "pre-check, GB (0 = FABBER_TPU_MEM_GB env, else "
-                       "the device HBM size on TPU, else unchecked)",
+                       "the device's memory limit, else unchecked)",
                        default="0"),
             OptionSpec("spatial-fchange", OPT_FLOAT,
                        "Stop sweeping early once the absolute change "
@@ -198,7 +198,7 @@ class SpatialVBInference(VBInference):
         # Dense-stencil neighbour sums: scatter voxels into the 3-D
         # grid, sum 2*spatial_dims shifted copies, extract — one
         # monotonic scatter+gather instead of a [V,6]/[V,30] random
-        # gather (the TPU-native stencil formulation; the gather path
+        # gather (the device-friendly stencil formulation; the gather path
         # remains for grids much larger than the masked voxel count).
         stencil_mode = options.get_string("spatial-stencil", "auto")
         self._dense = None
@@ -211,7 +211,7 @@ class SpatialVBInference(VBInference):
                 off = (ci[:, 2] * xs * ys + ci[:, 1] * xs
                        + ci[:, 0]).astype(np.int32)
                 # voxels->grid as a GATHER, not a scatter: scatters
-                # serialize on the TPU, a gather through the inverse
+                # serialize on the device, a gather through the inverse
                 # permutation vectorizes. Full contiguous grids (off ==
                 # 0..V-1) skip indexing entirely and just reshape.
                 if dsize == self.nvoxels and np.array_equal(
@@ -643,22 +643,12 @@ class SpatialVBInference(VBInference):
     # -- capacity / blocked streaming (beyond-HBM escape) ------------------
     def _device_mem_budget(self):
         """Device memory budget in bytes for the capacity pre-check:
-        --spatial-mem-gb, else FABBER_TPU_MEM_GB, else the TPU HBM
-        size; None (unchecked) on hosts without a hard device limit."""
+        --spatial-mem-gb, else the device's memory limit
+        (devices.device_memory_limit, which honours FABBER_TPU_MEM_GB);
+        None (unchecked) on hosts without a hard device limit."""
         if self.mem_gb > 0:
             return self.mem_gb * 1e9
-        env = _os.environ.get("FABBER_TPU_MEM_GB")
-        if env:
-            return float(env) * 1e9
-        if jax.default_backend() == "tpu":
-            try:
-                stats = jax.devices()[0].memory_stats() or {}
-                if stats.get("bytes_limit"):
-                    return float(stats["bytes_limit"])
-            except Exception:
-                pass
-            return 16e9  # v5e HBM
-        return None
+        return device_memory_limit()
 
     def _estimate_device_bytes(self):
         """Rough (within ~2x) peak device bytes of the unblocked
@@ -846,8 +836,7 @@ class SpatialVBInference(VBInference):
                 else base,
                 design=design,
                 locked_centres=pb(self._locked_centres)
-                if self._locked_centres is not None else (),
-                fused_data=()))
+                if self._locked_centres is not None else ()))
 
         step = self._compiled_block_step()
         report = getattr(self, "progress_cb", None)
@@ -942,12 +931,9 @@ class SpatialVBInference(VBInference):
         """P=1 / single-M-prior / contiguous-grid fast sweep: every
         state plane is carried GRID-shaped [Z,Y,X] instead of [1,V].
 
-        Why: XLA assigns the [1,V] SoA planes a T(1,128) tile layout
-        (one sublane) — every elementwise op in the sweep then runs at
-        1/8 VPU lane utilization, profiled as ~2/3 of the whole
-        spatial runtime at 8M voxels. A [Y,X] grid plane gets the full
-        (8,128) tile, and the MRF stencil becomes plain shifted adds
-        on the same layout. The arithmetic is the general sweep's
+        Why: the MRF stencil becomes plain shifted adds on the grid
+        layout, and [1,V] planes can get a one-row tile layout that
+        leaves most of each vector register idle. The arithmetic is the general sweep's
         P=1/M specialization, phase for phase (aK update ->
         spatial prior -> theta stats -> noise stats -> excision
         merge); F is assembled once at the final state (identical

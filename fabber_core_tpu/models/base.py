@@ -1,7 +1,7 @@
 """Forward-model protocol, registry and parameter resolution.
 
 Capability parity with the reference model layer (fwdmodel.h:89-155,
-fwdmodel.cc:210-313) designed TPU-first: a model is a *pure function*
+fwdmodel.cc:210-313) designed for batched devices: a model is a *pure function*
 ``evaluate(params [P], ctx) -> signal [T]`` traced once and
 vmapped/sharded over voxels by the inference engine; Jacobians come from
 ``jax.jacfwd`` rather than per-voxel finite differencing (an FD mode is
@@ -114,242 +114,20 @@ class Model:
         voxel-independent Jacobian, return the [T,P] design matrix;
         else None. Enables the engine's constant-Jacobian fast path
         (no per-voxel Jacobian is ever materialized and the
-        T-contractions become large matmuls on the MXU).
+        T-contractions become large matmuls).
         """
         return None
 
     # Models may additionally define
-    #     time_signal(self, params, t) -> signal plane
-    # where params is a list of model-space planes and t the (traced,
-    # float) sample index: a "time-local" form that unlocks the fused
-    # Pallas iteration (ops/fused_vb.py). It must depend only on the
-    # parameters, t and static model config — per-voxel data/coords/
-    # suppdata are not available inside the kernel.
-
-
-# -- time-local derivation for the whole-loop kernel tier ------------------
-
-# jaxpr primitives known to lower through Mosaic inside the whole-loop
-# Pallas kernel (ops/fused_loop_nl.py full-time mode, after vmap over
-# voxel lanes). Conservative by construction: anything outside this set
-# (gather/scatter, control flow, sort, FFT, RNG, ...) keeps the model on
-# the XLA route rather than risking a kernel-compile failure on TPU.
-_KERNEL_SAFE_PRIMITIVES = frozenset({
-    "add", "sub", "mul", "div", "rem", "neg", "abs", "sign", "max", "min",
-    "pow", "integer_pow", "exp", "exp2", "log", "log1p", "expm1", "sqrt",
-    "rsqrt", "cbrt", "square", "sin", "cos", "tan", "asin", "acos", "atan",
-    "atan2", "sinh", "cosh", "tanh", "asinh", "acosh", "atanh", "erf",
-    "erfc", "erf_inv", "logistic", "floor", "ceil", "round", "clamp",
-    "nextafter", "is_finite", "select_n", "eq", "ne", "lt", "le", "gt",
-    "ge", "and", "or", "not", "xor", "convert_element_type",
-    "broadcast_in_dim", "reshape", "squeeze", "transpose", "concatenate",
-    "slice", "rev", "pad", "iota", "reduce_sum", "reduce_max",
-    "reduce_min", "reduce_prod", "reduce_and", "reduce_or", "dot_general",
-    "stop_gradient", "copy",
-})
-
-# call-like primitives whose sub-jaxprs are inlined: recurse into them.
-# custom_jvp/custom_vjp are deliberately NOT here: inlining their primal
-# call_jaxpr would discard the model's custom derivative rule before the
-# kernel's jax.linearize (possibly NaN at removable singularities),
-# silently diverging from the XLA route which honors it — such models
-# are rejected to the XLA route instead (ADVICE r3).
-_CALL_PRIMITIVES = frozenset({
-    "pjit", "closed_call", "core_call", "remat", "remat2", "checkpoint",
-})
-
-
-def _jaxpr_kernel_safe(jaxpr):
-    for eqn in jaxpr.eqns:
-        name = eqn.primitive.name
-        if name in _CALL_PRIMITIVES:
-            for v in eqn.params.values():
-                sub = getattr(v, "jaxpr", v)
-                if hasattr(sub, "eqns"):
-                    if not _jaxpr_kernel_safe(sub):
-                        return False
-            continue
-        if name not in _KERNEL_SAFE_PRIMITIVES:
-            return False
-    return True
-
-
-def _sub_jaxpr(p):
-    """A param's inner Jaxpr: ClosedJaxpr (.jaxpr) or a raw Jaxpr
-    (remat2/checkpoint carry the latter; ADVICE r3)."""
-    if hasattr(p, "eqns"):
-        return p
-    return getattr(p, "jaxpr", None)
-
-
-def _count_time_planes(jaxpr, nt):
-    """Number of jaxpr intermediates carrying the time axis — the
-    VMEM-cost driver of in-kernel full-time evaluation (each becomes a
-    [tp,B] plane per voxel tile, and jax.linearize keeps primal
-    residuals plus per-basis tangent replays of every one live)."""
-    n = 0
-    for eqn in jaxpr.eqns:
-        sub = next((s for s in (_sub_jaxpr(p)
-                                for p in eqn.params.values())
-                    if hasattr(s, "eqns")), None)
-        if sub is not None:
-            n += _count_time_planes(sub, nt)
-            continue
-        for v in eqn.outvars:
-            if nt in tuple(getattr(v.aval, "shape", ())):
-                n += 1
-    return max(n, 1)
-
-
-def _eval_kernel_safe(closed_jaxpr, *args):
-    """Evaluate a closed jaxpr, rewriting the primitives Mosaic cannot
-    lower directly: float iota (what ``jnp.arange(nt, dtype=f32)``
-    traces to) becomes an int32 iota + convert — tpu.iota requires an
-    integer result type. Call-like primitives are evaluated recursively
-    so nested-jit model code gets the same rewrite."""
-    import jax
-    import jax.numpy as jnp
-    from jax._src import core as jcore
-
-    jaxpr = closed_jaxpr.jaxpr
-    env = {}
-
-    def read(v):
-        return v.val if isinstance(v, jcore.Literal) else env[v]
-
-    for v, c in zip(jaxpr.constvars, closed_jaxpr.consts):
-        env[v] = c
-    for v, a in zip(jaxpr.invars, args):
-        env[v] = a
-    for eqn in jaxpr.eqns:
-        invals = [read(v) for v in eqn.invars]
-        prim = eqn.primitive
-        sub = None
-        for pval in eqn.params.values():
-            if isinstance(pval, jcore.ClosedJaxpr):
-                sub = pval
-                break
-            if isinstance(pval, jcore.Jaxpr):
-                # remat2/checkpoint carry a raw Jaxpr whose consts ride
-                # as invars (ADVICE r3): wrap so the recursion (and its
-                # float-iota rewrite) sees it too
-                sub = jcore.ClosedJaxpr(pval, ())
-                break
-        if prim.name in _CALL_PRIMITIVES and sub is not None:
-            outs = _eval_kernel_safe(sub, *invals)
-        elif prim.name == "iota" and jnp.issubdtype(
-                eqn.params.get("dtype"), jnp.floating):
-            pars = dict(eqn.params)
-            fdt = pars["dtype"]
-            pars["dtype"] = jnp.int32
-            outs = [prim.bind(*invals, **pars).astype(fdt)]
-        else:
-            ans = prim.bind(*invals, **eqn.params)
-            outs = ans if prim.multiple_results else [ans]
-        for v, o in zip(eqn.outvars, outs):
-            env[v] = o
-    return [read(v) for v in jaxpr.outvars]
-
-
-class _ProbeForbidden:
-    """Probe stand-in for ctx.data/coords in derive_time_local_eval:
-    EVERY use raises. A plain None would let a model that
-    presence-checks (``if ctx.data is None: ...``) trace successfully
-    while computing a DIFFERENT signal than the XLA route (where data
-    is bound) — auto-engagement must reject such models instead
-    (ADVICE r3)."""
-
-    def __init__(self, name):
-        object.__setattr__(self, "_pf_name", name)
-
-    def _pf_boom(self, *a, **k):
-        raise TypeError(
-            f"ctx.{object.__getattribute__(self, '_pf_name')} is not "
-            "available to the data-free kernel tier")
-
-    def __getattr__(self, name):
-        self._pf_boom()
-
-
-for _dunder in ("__getitem__", "__iter__", "__len__", "__array__",
-                "__bool__", "__float__", "__int__", "__index__",
-                "__add__", "__radd__", "__sub__", "__rsub__", "__mul__",
-                "__rmul__", "__truediv__", "__rtruediv__", "__pow__",
-                "__rpow__", "__neg__", "__abs__", "__matmul__",
-                "__rmatmul__", "__lt__", "__le__", "__gt__", "__ge__",
-                "__mod__", "__rmod__", "__call__", "__jax_array__"):
-    setattr(_ProbeForbidden, _dunder, _ProbeForbidden._pf_boom)
-
-
-def derive_time_local_eval(model, nt, nparams, dtype, nsupp=0):
-    """Return ``fn(params [P][, supp [S]]) -> signal [nt]`` if the
-    model's generic ``evaluate`` is *data-free* — it reads only the
-    parameters, ctx.nt, static model config and (when the run provides
-    it, nsupp>0) per-voxel ctx.suppdata, never ctx.data/coords — and
-    every operation it traces to is known to lower inside a Pallas
-    kernel; else None.
-
-    This is what gives an arbitrary plugin model (one that defines only
-    ``evaluate``, the common case when porting reference models,
-    fwdmodel.h:104-110) the whole-loop VMEM-resident fast tier without
-    hand-writing ``time_signal``: ops/fused_vb.make_full_eval vmaps the
-    returned fn over voxel lanes *inside* the kernel (suppdata rides in
-    as an extra [S,V] kernel input).
-
-    The probe traces evaluate abstractly with data/coords replaced by
-    raising sentinels (_ProbeForbidden) — any use, INCLUDING a
-    presence check like ``ctx.data is None`` taking the data-using
-    branch, fails the trace and the model is (correctly) rejected —
-    then walks the jaxpr against a Mosaic-safe primitive allowlist so
-    auto-engagement cannot turn a previously working XLA-route model
-    into a TPU kernel-compile failure.
-    """
-    import jax
-
-    fdata = _ProbeForbidden("data")
-    fcoords = _ProbeForbidden("coords")
-    if nsupp:
-        def fn(pvec, svec):
-            ctx = EvalContext(data=fdata, coords=fcoords, suppdata=svec,
-                              nt=nt)
-            return model.evaluate(pvec, ctx)
-
-        avals = (jax.ShapeDtypeStruct((nparams,), dtype),
-                 jax.ShapeDtypeStruct((nsupp,), dtype))
-    else:
-        # suppdata stays None when the run has none: the XLA route
-        # binds None too, so a model's `suppdata is None` fallback
-        # branch is the branch that actually runs on both routes
-        ctx0 = EvalContext(data=fdata, coords=fcoords, suppdata=None,
-                           nt=nt)
-
-        def fn(pvec):
-            return model.evaluate(pvec, ctx0)
-
-        avals = (jax.ShapeDtypeStruct((nparams,), dtype),)
-    try:
-        out = jax.eval_shape(fn, *avals)
-        if tuple(out.shape) != (nt,):
-            return None
-        closed = jax.make_jaxpr(fn)(*avals)
-        if not _jaxpr_kernel_safe(closed.jaxpr):
-            return None
-    except Exception:
-        return None
-
-    # serve the traced-and-rewritten jaxpr, not evaluate itself: the
-    # interpreter swaps the primitives Mosaic cannot lower as written
-    # (float iota -> int iota + convert)
-    def fn_safe(pvec, *supp):
-        return _eval_kernel_safe(closed, pvec, *supp)[0]
-
-    # VMEM-cost hint for the kernel's tile-size gate
-    # (ops/fused_loop_nl.pick_nl_block): time-shaped intermediates in
-    # the trace, each a live [tp,B] plane (x primal/residual/tangent
-    # multiplicity, applied by the caller)
-    fn_safe.time_planes = _count_time_planes(closed.jaxpr, nt)
-    fn_safe.nsupp = nsupp
-    return fn_safe
+    #     time_signal(self, params, t) -> signal
+    # where params is a list of model-space parameter arrays (one per
+    # parameter, one entry per voxel) and t the (float) sample index: a
+    # "time-local" form that unlocks the whole-loop nonlinear kernel
+    # (ops/nl_loop.py). It must depend only on the parameters, t and
+    # static model config — per-voxel data/coords/suppdata are not
+    # available inside the kernel. An optional
+    #     time_signal_jac(self, params, t) -> (signal, [P] jacobian)
+    # gives the model-space Jacobian in the same evaluation.
 
 
 # -- registry -------------------------------------------------------------

@@ -49,10 +49,8 @@ class ExpModel(Model):
         return params
 
     def evaluate(self, params, ctx, key=""):
-        # scalar indexing (not params[0::2]) keeps the trace on the
-        # Mosaic-safe primitive set (slice+squeeze, no gather), so this
-        # evaluate also serves as the in-kernel generic form
-        # (models/base.py derive_time_local_eval)
+        # scalar indexing (not params[0::2]) traces to slices, not a
+        # gather
         t = jnp.arange(ctx.nt, dtype=params.dtype) * self.dt
         sig = params[0] * jnp.exp(-params[1] * t)
         for i in range(1, self.num):
@@ -60,8 +58,8 @@ class ExpModel(Model):
         return sig
 
     def time_signal(self, params, t):
-        """Time-local form for the fused Pallas iteration: params is a
-        list of model-space planes, t the (traced) sample index."""
+        """Time-local form for the whole-loop kernel: params is a list
+        of model-space arrays, t the (traced) sample index."""
         tv = t * self.dt
         sig = params[0] * jnp.exp(-params[1] * tv)
         for i in range(1, self.num):
@@ -69,7 +67,7 @@ class ExpModel(Model):
         return sig
 
     def time_signal_jac(self, params, t):
-        """Analytic model-space Jacobian for the fused kernel:
+        """Analytic model-space Jacobian for the whole-loop kernel:
         ds/da_i = e_i, ds/dr_i = -a_i * t * e_i (the exponentials are
         shared with the primal — one exp per term instead of a full
         linear-map replay per parameter)."""

@@ -45,7 +45,7 @@ class PolynomialModel(Model):
         return t[:, None] ** jnp.arange(self.degree + 1, dtype=jnp.float64)[None, :]
 
     def time_signal(self, params, t):
-        """Time-local form (fused kernel): t is the 0-based index."""
+        """Time-local form (whole-loop kernel): t is the 0-based index."""
         tv = t + 1.0  # reference samples run 1..T
         sig = params[0]
         power = tv
@@ -55,8 +55,7 @@ class PolynomialModel(Model):
         return sig
 
     def time_signal_jac(self, params, t):
-        """Analytic Jacobian: ds/dc_k = t^k (shared with the primal).
-        Rows are materialized [TB,B] (the kernel stages them in VMEM)."""
+        """Analytic Jacobian: ds/dc_k = t^k (shared with the primal)."""
         tv = t + 1.0
         sig = params[0]
         jac = [jnp.ones_like(tv) * jnp.ones_like(params[0])]

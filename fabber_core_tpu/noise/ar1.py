@@ -6,7 +6,7 @@ coefficients alpha inferred as a small MVN per voxel, Gamma-distributed
 precisions phi per echo, and the banded "alpha matrix" algebra of the
 MATLAB NPINTS derivation.
 
-TPU-native formulation: the reference materializes T x T banded
+Batched formulation: the reference materializes T x T banded
 matrices per voxel (noisemodel_ar.cc:83-224). Every such matrix is a
 *global* pattern — a single (symmetrized) shifted diagonal with entries
 at (a + i*s, b + i*s), i = 0..nTimes-2, s = n_echoes — so every
@@ -19,7 +19,7 @@ quadratic form it enters reduces to strided-slice correlations over
 
 and the per-voxel alpha marginals Q_n = sum_j coeff_nj(alpha) M_j are
 never formed — their coefficients multiply the per-matrix scalar
-reductions instead. Everything is elementwise VPU work in the SoA
+reductions instead. Everything is elementwise vector work in the SoA
 layout; no T x T objects exist anywhere.
 
 State: alpha means [A,V] + covariance [A,A,V] (A = 2/3/4 for

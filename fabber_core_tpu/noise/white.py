@@ -2,9 +2,9 @@
 
 Implements the analytic VB fixed-point updates of Chappell et al. 2009
 (Eqs 19-22) with the same numerical conventions as the reference
-(noisemodel_white.cc:228-454), re-expressed for the TPU's vector units:
+(noisemodel_white.cc:228-454), re-expressed as whole-volume plane arithmetic:
 every per-voxel quantity is a [..., V] plane (voxels on the fastest,
-lane-tiled axis) and the tiny P x P algebra is unrolled elementwise
+vectorized axis) and the tiny P x P algebra is unrolled elementwise
 (ops/smallmat.py) instead of batched LAPACK calls — the layout a SIMD
 machine wants when P << 128.
 
@@ -183,7 +183,7 @@ class WhiteNoiseModel(NoiseModel):
         Two routes to the same arithmetic:
           * generic: per-voxel Jacobian planes jac [P,T,V];
           * fixed-design (design [T,P], jac unused): the T-contractions
-            become single [P^2,T] @ [T,V] matmuls on the MXU and the
+            become single [P^2,T] @ [T,V] matmuls and the
             Jacobian never materializes per voxel.
         """
         x = self.phi_timepoint_weights(noise_post)  # [T,V]

@@ -1,12 +1,12 @@
 """Unrolled small-matrix algebra over voxel planes (SoA layout).
 
-The per-voxel P x P systems (P ~ 2-20) are far too small for the MXU or
-for batched LAPACK kernels: a [V,P,P] layout wastes ~98% of the TPU's
-8x128 vector tiles when P=3. Instead every matrix entry lives as a
+The per-voxel P x P systems (P ~ 2-20) are far too small for matrix
+units or batched LAPACK kernels: a [V,P,P] layout leaves most of every
+vector register idle when P=3. Instead every matrix entry lives as a
 separate [V]-shaped plane (array shape [P,P,V], voxels on the fastest
 axis), and Cholesky/solve/inverse are unrolled at trace time into pure
-elementwise arithmetic the VPU runs at full width. XLA fuses the whole
-chain into a handful of vectorized loops.
+elementwise arithmetic that runs at full vector width. XLA fuses the
+whole chain into a handful of vectorized loops.
 
 All functions are jittable and preserve any sharding on the V axis.
 """

@@ -34,7 +34,7 @@ runs in float64 numpy at trace time.
 
 Eligibility (gated by the engine): fixed design + white noise with
 one phi group + iteration-invariant priors (the same gates as the
-whole-loop kernel) + no locked noise stdev. Detectors: the plain loop
+whole-loop nonlinear kernel) + no locked noise stdev. Detectors: the plain loop
 below serves maxits; make_spectral_detector_loop serves the F-based
 family (pointzeroone / freduce / trialmode) by evaluating the ELBO in
 the eigenbasis each iteration (~15 extra flops/voxel) and running the
@@ -98,9 +98,8 @@ def make_spectral_loop(design_host, qmask_host, pp_host, n_iters,
         dtqy = dtqr + a @ m0                           # D'Qy  [P,V]
         # the P axis is UNROLLED into per-mode [V] rows: a [P,V] loop
         # body makes XLA emit one reduction kernel per cross/quad/tr
-        # sum, each round-tripping its [P,V] input through HBM every
-        # iteration (~27ms of the 43ms device time at 8M; device-time
-        # probe r4). With [V] rows the whole body fuses into ONE
+        # sum, each round-tripping its [P,V] input through device
+        # memory every iteration. With [V] rows the whole body fuses into ONE
         # elementwise kernel per iteration reading only the 4P+1
         # loop-invariant rows.
         ut = [r[0] for r in jnp.split(etw @ dtqy, p)]
@@ -158,8 +157,7 @@ def make_spectral_loop(design_host, qmask_host, pp_host, n_iters,
 
 def eigen_elbo_const(qmask_host, c_post, c0, b0, p):
     """Host-f64 constant block of the eigenbasis ELBO (derivation in
-    make_spectral_detector_loop's docstring). Shared with the
-    whole-program spectral kernel (ops/fused_spectral.py)."""
+    make_spectral_detector_loop's docstring)."""
     t_n = float(np.asarray(qmask_host, np.float64).sum())
     cpost_f = float(c_post)
     return (0.5 * p - 0.5 * t_n * math.log(2 * math.pi)

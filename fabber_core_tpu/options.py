@@ -103,14 +103,11 @@ GLOBAL_OPTIONS = [
                "voxel axis over the global device mesh with "
                "process-local data feeding"),
     OptionSpec("coordinator-address", OPT_STR,
-               "host:port of process 0 (distributed mode; TPU pods "
-               "auto-detect)"),
+               "host:port of process 0 (distributed mode)"),
     OptionSpec("num-processes", OPT_INT,
-               "Total process count (distributed mode; auto-detected "
-               "on TPU pods)"),
+               "Total process count (distributed mode)"),
     OptionSpec("process-id", OPT_INT,
-               "This process's index (distributed mode; auto-detected "
-               "on TPU pods)"),
+               "This process's index (distributed mode)"),
 ]
 
 

@@ -1,16 +1,15 @@
 """Multi-host execution: jax.distributed + process-local sharded data.
 
 The reference is a single process with no distributed backend
-(SURVEY.md section 2.8); this is the green-field TPU-native layer for
-running one analysis across multiple hosts (e.g. a v5e-256 pod slice,
-where each host drives 4 chips over ICI and hosts are connected over
-DCN).
+(SURVEY.md section 2.8); this is the green-field layer for running one
+analysis across several processes: on GPUs one process per card, on
+one host or several.
 
 Design:
   * One global 1-D device mesh over the voxel axis (the workload's
     data-parallel axis). Plain VB has no cross-shard traffic at all;
-    spatial VB's neighbour gathers become halo exchanges over ICI and
-    the aK/Fglobal reductions become psums — all inserted by GSPMD
+    spatial VB's neighbour gathers become halo exchanges and the
+    aK/Fglobal reductions become psums — all inserted by GSPMD
     from the sharding annotations, exactly as on a single host.
   * Each process feeds ONLY its shard of the voxel axis
     (`jax.make_array_from_process_local_data`): device memory is the
@@ -18,12 +17,12 @@ Design:
     voxels on its devices. (NIFTI stores the time axis slowest, so a
     voxel subset is strided across the whole file; hosts on a shared
     filesystem read the file once and keep only their slice in host
-    RAM, which is cheap next to HBM.)
+    RAM, which is cheap next to device memory.)
   * Deterministic reductions: the Jacobi sweep formulation makes
     results independent of shard topology (docs/PARITY.md section 2.8).
 
 Single-process use is a no-op passthrough, so the same driver script
-runs unchanged on a laptop CPU, one TPU VM, or a pod slice.
+runs unchanged on a laptop CPU, one GPU host, or several.
 """
 
 import os
@@ -36,8 +35,8 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 def initialize(coordinator_address=None, num_processes=None,
                process_id=None):
     """Initialize jax.distributed from args or the standard env vars
-    (COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID; TPU pod slices
-    auto-detect all three). No-op for single-process runs."""
+    (COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID). No-op for
+    single-process runs."""
     coordinator_address = coordinator_address or os.environ.get(
         "COORDINATOR_ADDRESS")
     if num_processes is None and "NUM_PROCESSES" in os.environ:
@@ -46,15 +45,11 @@ def initialize(coordinator_address=None, num_processes=None,
         process_id = int(os.environ["PROCESS_ID"])
     if coordinator_address is None and num_processes in (None, 1):
         return False  # single process
-    # TPU backends ship their own cross-process transport (ICI/DCN);
-    # the CPU backend needs an explicit collectives implementation or
-    # every process sees only its own devices. Enables the true
-    # multi-process CPU tests; harmless no-op on TPU pods.
-    try:
-        if "cpu" in str(jax.config.jax_platforms or ""):
-            jax.config.update("jax_cpu_collectives_implementation", "gloo")
-    except Exception:  # older jax without the option
-        pass
+    # GPU backends carry cross-process collectives over NCCL; the CPU
+    # backend needs an explicit collectives implementation or every
+    # process sees only its own devices (the multi-process CPU tests)
+    if "cpu" in str(jax.config.jax_platforms or ""):
+        jax.config.update("jax_cpu_collectives_implementation", "gloo")
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes, process_id=process_id)
@@ -264,9 +259,9 @@ def shard_engine_arrays(engine, mesh):
         engine.neigh = jax.device_put(engine.neigh, vox_first)
         engine.neigh2 = jax.device_put(engine.neigh2, vox_first)
     engine.options.set("voxel-chunk-size", str(engine.nvoxels))
-    # Fused Pallas kernels dispatch per-shard via shard_map
-    # (inference/vb.py _shard_kernel); the padded voxel count always
-    # divides the mesh here, so eligibility is unchanged.
+    # Pallas kernels dispatch per-shard via shard_map (inference/vb.py
+    # _shard_kernel); the padded voxel count always divides the mesh
+    # here, so eligibility is unchanged.
     engine.mesh = mesh
     return mesh
 

@@ -1,7 +1,7 @@
 """Device-mesh sharding for multi-chip runs.
 
 The reference has no distributed backend (SURVEY.md section 2.8); this
-is the green-field TPU-native equivalent. The engine's SoA layout puts
+is the green-field device-mesh equivalent. The engine's SoA layout puts
 voxels on the last axis of every plane, so a 1-D mesh over the voxel
 axis is the framework's data-parallel (and, for spatial VB,
 halo-coupled) sharding: GSPMD turns neighbour gathers into halo
@@ -79,13 +79,8 @@ def shard_engine(engine, devices=None, log=None):
         engine.neigh2 = jax.device_put(engine.neigh2, vox_first)
     # chunking would fight the sharding; a sharded run is one pass
     engine.options.set("voxel-chunk-size", str(engine.nvoxels))
-    # Pallas kernels are single-device programs; when the voxel count
-    # divides the mesh they dispatch per-shard via shard_map
-    # (inference/vb.py _shard_kernel), keeping the fused perf tier
-    # under sharding. Otherwise fall back to the XLA routes, which
-    # GSPMD shards transparently.
-    if engine.nvoxels % mesh.devices.size != 0:
-        engine.use_fused = False
-        engine.use_loop_kernel = False
+    # Pallas kernels are single-device programs: they dispatch per-shard
+    # via shard_map (inference/vb.py _shard_kernel); the device subset
+    # above always divides the voxel count
     engine.mesh = mesh
     return mesh

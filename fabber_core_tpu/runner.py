@@ -205,7 +205,9 @@ def _dispatch(method, model, options, data, coords, suppdata, store,
         log.log(f"NLLS::Engine route: {engine.route_description()}")
         if shard:
             from .parallel import shard_engine
-            shard_engine(engine, log=log)
+            mesh = shard_engine(engine, log=log)
+            log.log(f"Sharding {engine.nvoxels} voxels over mesh "
+                    f"{dict(mesh.shape)}")
         result = engine.run()
     else:
         raise FabberError(f"Unrecognized inference method: {method}")

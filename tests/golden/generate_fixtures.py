@@ -27,7 +27,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))
-os.environ.setdefault("FABBER_TPU_PLATFORM", "cpu")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 from oracle import vb_voxel  # noqa: E402  (tests/oracle.py)
 

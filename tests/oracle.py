@@ -13,11 +13,13 @@ from scipy.special import digamma, gammaln
 
 def vb_voxel(eval_fn, jac_fn, y, prior_mean, prior_prec, post_mean0,
              post_var0, niter, qmasks=None, prior_b=1e6, prior_c=1e-6,
-             post_b0=1e-8, post_c0=50.0, compute_f=True):
+             post_b0=1e-8, post_c0=50.0, compute_f=True, locked_sd=None):
     """Run `niter` VB iterations for one voxel; returns history dict.
 
     eval_fn(params) -> signal [T]; jac_fn(params) -> [T, P].
     qmasks: [Q,T] 0/1 indicator per phi group (default: single group).
+    locked_sd: fix the noise std dev (b = 1 / (c sd^2) after each
+    update, noisemodel_white.cc locked-noise-stdev).
     """
     t_len = len(y)
     p = len(post_mean0)
@@ -55,6 +57,8 @@ def vb_voxel(eval_fn, jac_fn, y, prior_mean, prior_prec, post_mean0,
             tmp = k @ (qi * k) + np.trace(cov @ jac.T @ np.diag(qi) @ jac)
             phi_b[i] = 1.0 / (tmp * 0.5 + 1.0 / pb[i])
             phi_c[i] = (qi.sum() - 1) * 0.5 + pc[i]
+            if locked_sd is not None:
+                phi_b[i] = 1.0 / phi_c[i] / locked_sd ** 2
 
         # re-linearize
         centre = m.copy()

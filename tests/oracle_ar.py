@@ -180,4 +180,4 @@ def ar_vb_voxel(y, design, prior_mean, prior_prec, niter, nphis=1,
 
     return {"means": m, "cov": cov, "alpha_means": alpha_m,
             "alpha_cov": alpha_cov, "phi_b": phi_b, "phi_c": phi_c,
-            "F": fs[-1] if fs else None}
+            "F": fs[-1] if fs else None, "F_history": fs}

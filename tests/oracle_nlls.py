@@ -2,9 +2,10 @@
 
 Implements the damped Gauss-Newton scheme with the reference's
 semantics (inference_nlls.cc:90-293: Levenberg default / Marquardt
-diag-damping, SSE cost, posterior precision J'J/mse with 1e-6 floor)
-for the single-exponential model with log-transformed parameters, one
-voxel at a time, in plain float64 NumPy. Used to pin the engine's
+diag-damping, SSE cost, posterior precision J'J/mse with 1e-6 floor),
+one voxel at a time, in plain float64 NumPy. The model is a function
+latent -> (signal, jacobian); the single exponential with
+log-transformed parameters is the default. Used to pin the engine's
 per-iteration accept/reject trajectory and final posterior.
 """
 
@@ -28,11 +29,13 @@ def exp_signal_and_jac(latent, t):
     return sig, np.stack([sig, -r * t * sig])
 
 
-def nlls_voxel(y, t, latent0, max_its=100, marquardt=False):
-    """Run the lane algorithm for one voxel. Returns dict with params,
-    cost, iterations, precision, covariance and the per-step trace."""
+def nlls_voxel(y, t, latent0, max_its=100, marquardt=False,
+               signal_and_jac=exp_signal_and_jac):
+    """Run the lane algorithm for one voxel. signal_and_jac(latent, t)
+    -> (signal [T], jac [P,T]). Returns dict with params, cost,
+    iterations, precision, covariance and the per-step trace."""
     p = np.asarray(latent0, float).copy()
-    sig, _ = exp_signal_and_jac(p, t)
+    sig, _ = signal_and_jac(p, t)
     cost = float(np.sum((y - sig) ** 2))
     lam = LAMBDA_INIT
     done = False
@@ -41,14 +44,14 @@ def nlls_voxel(y, t, latent0, max_its=100, marquardt=False):
     for _ in range(max_its):
         if done:
             break
-        sig, jac = exp_signal_and_jac(p, t)
+        sig, jac = signal_and_jac(p, t)
         r = y - sig
         jtj = jac @ jac.T
         jtr = jac @ r
         damp = np.diag(np.diag(jtj)) if marquardt else np.eye(len(p))
         delta = np.linalg.solve(jtj + lam * damp, jtr)
         trial = p + delta
-        tsig, _ = exp_signal_and_jac(trial, t)
+        tsig, _ = signal_and_jac(trial, t)
         tcost = float(np.sum((y - tsig) ** 2))
         better = np.isfinite(tcost) and tcost < cost
         converged = False
@@ -68,7 +71,7 @@ def nlls_voxel(y, t, latent0, max_its=100, marquardt=False):
         its += 1
         trace.append((p.copy(), cost, lam, done))
 
-    sig, jac = exp_signal_and_jac(p, t)
+    sig, jac = signal_and_jac(p, t)
     mse = cost / (len(t) - len(p))
     prec = (jac @ jac.T) / mse
     for i in range(len(p)):

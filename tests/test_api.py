@@ -181,9 +181,9 @@ class TestGoldenOutputOnly:
 
 
 def test_true_f32_matmul_precision_pinned():
-    """On TPU the default matmul precision silently feeds f32 operands
-    to the MXU as single-pass bfloat16 — measured 2.5 posterior-sd
-    drift in the sufficient-statistics matmuls (round 4). The package
-    must pin "highest" at import."""
+    """A GPU's default matmul precision runs float32 products in TF32
+    (about three decimal digits), enough to move the sufficient-
+    statistics posterior means by a visible fraction of a posterior sd.
+    The package must pin "highest" at import."""
     import jax
     assert str(jax.config.jax_default_matmul_precision) == "highest"

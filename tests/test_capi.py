@@ -124,7 +124,7 @@ def test_standalone_c_host():
     if not os.path.exists(HOST):
         build()
     env = dict(os.environ)
-    env["FABBER_TPU_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     env["FABBER_TPU_PYTHONPATH"] = (
         os.path.abspath(os.path.join(CAPI_DIR, ".."))
         + ":" + ":".join(p for p in __import__("sys").path if "site-packages" in p))

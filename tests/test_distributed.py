@@ -173,53 +173,6 @@ def test_distributed_cli(tmp_path):
     np.testing.assert_allclose(m1, m2, rtol=1e-6, atol=1e-8)
 
 
-@pytest.mark.parametrize("mode,model_opts", [
-    ("pallas-loop", {"model": "poly", "degree": "2"}),
-    ("pallas", {"model": "exp", "dt": "0.05"}),
-], ids=["loop-kernel", "iteration-kernel"])
-def test_fused_kernels_shard_map(mode, model_opts):
-    """Fused Pallas kernels stay enabled under voxel sharding and
-    dispatch per-shard via shard_map (inference/vb.py _shard_kernel),
-    matching the XLA route (VERDICT r1 next-round item 3)."""
-    from fabber_core_tpu.options import RunOptions
-    from fabber_core_tpu.models import get_model_class
-    from fabber_core_tpu.inference.vb import VBInference
-    from fabber_core_tpu.parallel.mesh import shard_engine
-
-    rng = np.random.default_rng(0)
-    nv, nt = 256, 30
-    t = np.arange(1, nt + 1)
-    if model_opts["model"] == "poly":
-        data = (0.5 + 0.02 * t[None, :]
-                + 0.1 * rng.standard_normal((nv, nt))).astype(np.float32)
-    else:
-        data = (np.exp(-t * 0.05)[None, :]
-                + 0.05 * rng.standard_normal((nv, nt))).astype(np.float32)
-    coords = np.stack([np.arange(nv), np.zeros(nv), np.zeros(nv)], 1)
-
-    def build(kernel, shard):
-        o = RunOptions({**model_opts, "noise": "white",
-                        "max-iterations": "8", "dtype": "single",
-                        "engine-kernel": kernel,
-                        "print-free-energy": True})
-        e = VBInference(get_model_class(model_opts["model"])(o), o,
-                        data, coords)
-        if shard:
-            shard_engine(e)
-        return e
-
-    rx = build("xla", False).run()
-    eng = build(mode, True)
-    assert (eng.use_loop_kernel if mode == "pallas-loop"
-            else eng.use_fused), "kernel must stay enabled under sharding"
-    rp = eng.run()
-    sd = np.sqrt(np.diagonal(rx.cov, axis1=1, axis2=2))
-    assert np.max(np.abs(rx.means - rp.means) / sd) < 5e-3
-    np.testing.assert_allclose(rx.noise_means, rp.noise_means, rtol=5e-4)
-    np.testing.assert_allclose(rx.free_energy, rp.free_energy,
-                               rtol=1e-4, atol=5e-3)
-
-
 def test_shard_voxels_nondivisible_pads(tmp_path):
     """--shard-voxels with a voxel count that does not divide the
     device count takes the padded path (full device utilisation)

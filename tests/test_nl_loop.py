@@ -1,12 +1,12 @@
-"""Whole-loop nonlinear Pallas kernel (ops/fused_loop_nl.py):
-interpret-mode equivalence with the XLA generic-Jacobian route,
-padding path, extended noise options, and eligibility gating.
+"""Whole-loop nonlinear Pallas kernel (ops/nl_loop.py): interpret-mode
+equivalence with the XLA generic-Jacobian route, the lane tail,
+extended noise options, and eligibility gating.
 
-The kernel runs the ENTIRE maxits fixed point of a time-signal model
-on VMEM-resident state (model re-evaluated in-kernel per iteration);
-every case is pinned against the XLA route, which shares no kernel
-code, so agreement is an end-to-end check of the in-kernel model
-evaluation, solve, and phi update."""
+The kernel runs the whole fixed point of a time-signal model with the
+posterior in registers (model re-evaluated in the kernel per
+iteration); every case is pinned against the XLA route, which shares
+no kernel code, so agreement is an end-to-end check of the in-kernel
+model evaluation, solve, and phi update."""
 
 import numpy as np
 import pytest
@@ -55,7 +55,7 @@ def assert_match(rx, rp, mean_rtol=3e-4, f_atol=2e-3):
     np.testing.assert_array_equal(rx.bad_voxels, rp.bad_voxels)
 
 
-@pytest.mark.parametrize("nv", [256, 200])  # 200 exercises edge padding
+@pytest.mark.parametrize("nv", [256, 200])  # 200 exercises the lane tail
 def test_nl_loop_matches_xla(nv):
     rx = make_engine(nv, "xla").run()
     eng = make_engine(nv, "pallas-loop")
@@ -126,12 +126,29 @@ def test_nl_loop_p4_matches_xla():
     assert_match(rx, eng.run(), mean_rtol=1e-3)
 
 
-def test_nl_loop_p4_matches_per_iteration_kernel():
-    """P=4 whole-loop kernel vs the per-iteration fused kernel."""
-    rx = make_asym4_engine(128, "pallas").run()
-    eng = make_asym4_engine(128, "pallas-loop")
+def test_nl_loop_p4_matches_oracle():
+    """P=4 whole-loop kernel vs the float64 NumPy oracle (the model is
+    linear in its parameters, so float32 stays within 1e-3 sd)."""
+    import oracle
+    nt = 40
+    eng = make_asym4_engine(64, "pallas-loop", nt=nt)
     assert eng.use_nl_loop
-    assert_match(rx, eng.run(), mean_rtol=1e-3)
+    res = eng.run()
+    t = np.arange(nt) * Asym4Model.dt
+    design = np.stack([np.ones(nt), np.sin(np.pi * t), np.cos(np.pi * t),
+                       np.sin(2 * np.pi * t)], 1)
+    data = np.asarray(eng.data, np.float64).T
+    pm = np.array([p.prior.mean for p in eng.params])
+    pp = np.array([1.0 / p.prior.var for p in eng.params])
+    m0 = np.asarray(eng.initial_state().post.means, np.float64).T
+    for v in range(0, 64, 7):
+        ref = oracle.vb_voxel(lambda p: design @ p, lambda p: design,
+                              data[v], pm, pp, m0[v], np.ones(4), 10)
+        sd = np.sqrt(np.diag(ref["cov"]))
+        assert np.max(np.abs(res.means[v] - ref["means"]) / sd) < 1e-3
+        np.testing.assert_allclose(res.noise_means[v, 0],
+                                   ref["phi_b"][0] * ref["phi_c"][0],
+                                   rtol=1e-3)
 
 
 def _canon_biexp(means):
@@ -199,14 +216,13 @@ def test_nl_loop_biexp_canonical():
     assert gray.sum() <= 3
 
 
-# nt=25 also exercises the time-padding path (Tp=32)
+# nt=25: a T that is no multiple of anything
 @pytest.mark.parametrize("extra,nt", [
-    ({"noise-pattern": "12"}, 24),
     ({"mt1": "3", "mt2": "17"}, 25),
     ({"locked-noise-stdev": "0.1"}, 24),
     ({"prior-noise-stddev": "0.2"}, 24),
     ({"max-iterations": "3"}, 24),
-], ids=["pattern", "masked", "locked-sd", "phiprior", "short"])
+], ids=["masked", "locked-sd", "phiprior", "short"])
 def test_nl_loop_extended_cases(extra, nt):
     rx = make_engine(128, "xla", extra, nt=nt).run()
     eng = make_engine(128, "pallas-loop", extra, nt=nt)
@@ -232,31 +248,27 @@ def test_nl_loop_image_prior():
 
 
 def test_nl_loop_gating():
-    """Ineligible configurations fall back to slower routes; the full
-    detector family (incl. trialmode/lm save/revert) is served."""
-    # trialmode/lm run IN-KERNEL since round 5 (tracks_best mode:
-    # best-state copies + the damped update on VMEM state)
-    eng = make_engine(64, "pallas-loop", {"convergence": "trialmode",
-                                          "max-iterations": "15"})
-    assert eng.use_nl_loop and eng.nl_fdet_kind == "trialmode"
-    eng = make_engine(64, "pallas-loop", {"convergence": "lm",
-                                          "max-iterations": "15"})
-    assert eng.use_nl_loop and eng.nl_fdet_kind == "lm"
-    # F history needs per-iteration values
-    eng = make_engine(64, "pallas-loop",
-                      {"save-free-energy-history": True})
-    assert not eng.use_nl_loop
-    # ARD prior -> iteration-dependent prior precision
-    eng = make_engine(64, "pallas-loop", {"PSP_byname1": "amp1",
-                                          "PSP_byname1_type": "A"})
-    assert not eng.use_nl_loop
-    # double precision (Mosaic is f32)
-    eng = make_engine(64, "pallas-loop", {"dtype": "double"})
-    assert not eng.use_nl_loop
-    # explicit per-iteration kernel request keeps the old route
-    eng = make_engine(64, "pallas")
-    assert eng.use_fused and not eng.use_nl_loop
-    # fixed-design models stay on the stats loop kernel tier
+    """Ineligible configurations take the XLA routes."""
+    eng = make_engine(64, "pallas-loop")
+    assert eng.use_nl_loop and eng.nl_interpret
+    # auto on the CPU never takes the kernel
+    assert not make_engine(64, "auto").use_nl_loop
+    for extra in (
+            # save/revert detectors run on the XLA route
+            {"convergence": "trialmode", "max-iterations": "15"},
+            {"convergence": "lm", "max-iterations": "15"},
+            # F history needs per-iteration values
+            {"save-free-energy-history": True},
+            # ARD prior -> iteration-dependent prior precision
+            {"PSP_byname1": "amp1", "PSP_byname1_type": "A"},
+            # the kernel computes in float32
+            {"dtype": "double"},
+            # one noise group only
+            {"noise-pattern": "12"}):
+        eng = make_engine(64, "pallas-loop", extra)
+        assert not eng.use_nl_loop, extra
+        assert "XLA" in eng.route_description()
+    # fixed-design models stay on the sufficient-statistics route
     from fabber_core_tpu.options import RunOptions as RO
     opts = RO({"model": "poly", "degree": "2", "noise": "white",
                "max-iterations": "10", "dtype": "single",
@@ -265,12 +277,12 @@ def test_nl_loop_gating():
     data = rng.normal(0, 1, (64, 30)).astype(np.float32)
     coords = np.stack([np.arange(64), np.zeros(64), np.zeros(64)], 1)
     eng = VBInference(get_model_class("poly")(opts), opts, data, coords)
-    assert eng.use_loop_kernel and not eng.use_nl_loop
+    assert eng.use_stats and not eng.use_nl_loop
 
 
 # ---------------------------------------------------------------------
-# pointzeroone IN-KERNEL (fused_loop_nl detector mode): the fchange
-# lane state machine runs on VMEM-resident per-lane free energy; both
+# pointzeroone IN-KERNEL (ops/nl_loop.py detector mode): the fchange
+# lane state machine runs on per-lane free energy in registers; both
 # detector decisions (iteration counts) and results must match the XLA
 # route, which computes F through a completely separate assembly
 # (noise/white.py free_energy + jax.scipy Gamma functions).
@@ -283,7 +295,7 @@ def test_nl_loop_pointzeroone_matches_xla():
     extra = {"convergence": "pointzeroone", "max-iterations": "15"}
     rx = make_engine(256, "xla", extra, seed=2).run()
     eng = make_engine(256, "pallas-loop", extra, seed=2)
-    assert eng.use_nl_loop and eng.nl_fdet
+    assert eng.use_nl_loop and eng.nl_fdet_kind
     rp = eng.run()
     flip = rx.iterations != rp.iterations
     assert flip.sum() <= 1
@@ -314,7 +326,7 @@ def test_nl_loop_pointzeroone_p4():
     extra = {"convergence": "pointzeroone", "max-iterations": "15"}
     rx = make_asym4_engine(128, "xla", extra=extra).run()
     eng = make_asym4_engine(128, "pallas-loop", extra=extra)
-    assert eng.use_nl_loop and eng.nl_fdet
+    assert eng.use_nl_loop and eng.nl_fdet_kind
     rp = eng.run()
     flip = rx.iterations != rp.iterations
     assert flip.sum() <= 1
@@ -339,16 +351,16 @@ def test_nl_loop_pointzeroone_p4():
     {"convergence": "pointzeroone", "max-iterations": "15",
      "min-fchange": "1e9"},
     {"convergence": "pointzeroone", "max-iterations": "15",
-     "noise-pattern": "12"},
-], ids=["one-iter", "huge-tol", "two-groups"])
+     "mt1": "2", "mt2": "9"},
+], ids=["one-iter", "huge-tol", "masked"])
 def test_nl_loop_pointzeroone_edges(extra):
     """Trip-count edges: the final iteration's test runs after the
     loop; a huge tolerance converges every lane on its second test
     with its == 1 (FchangeDetector: its not incremented on the
-    converging test); multi-group noise sums per-group ELBO pieces."""
+    converging test); masked timepoints leave the F constants."""
     rx = make_engine(128, "xla", extra, seed=3).run()
     eng = make_engine(128, "pallas-loop", extra, seed=3)
-    assert eng.use_nl_loop and eng.nl_fdet
+    assert eng.use_nl_loop and eng.nl_fdet_kind
     rp = eng.run()
     np.testing.assert_array_equal(rx.iterations, rp.iterations)
     assert_match(rx, rp)
@@ -392,12 +404,12 @@ def test_nl_loop_freduce_matches_xla():
     convergence.cc:117-131) vs the XLA route. Reverted lanes restore
     the engine's INITIAL posterior on both routes; their reported F
     differs by construction (the XLA best-state carries placeholder
-    prior planes — see ops/fused_loop_nl.py docstring), so F parity is
+    prior planes), so F parity is
     asserted on non-reverted lanes only."""
     ex = _freduce_engines("xla")
     rx = ex.run()
     eng = _freduce_engines("pallas-loop")
-    assert eng.use_nl_loop and eng.nl_fdet
+    assert eng.use_nl_loop and eng.nl_fdet_kind
     assert eng.nl_fdet_kind == "freduce"
     assert "freduce" in eng.route_description()
     rp = eng.run()
@@ -457,77 +469,3 @@ def test_nl_loop_freduce_clean_data():
         np.testing.assert_allclose(rx.free_energy[keep],
                                    rp.free_energy[keep],
                                    rtol=1e-4, atol=2e-3)
-
-
-# ---------------------------------------------------------------------------
-# trialmode / lm IN-KERNEL (tracks_best): the engine's save/revert
-# protocol on VMEM-resident best-state copies + (lm) the per-lane
-# damped theta update — the state machines are the very
-# _mask_detector_step transcription the whole kernel runs
-# ---------------------------------------------------------------------------
-
-def _det_engines(mode, det, nv=128, seed=0):
-    """High-noise fast-decay scenario (as _freduce_engines): the
-    nonlinear re-centring makes F drop on some lanes, exercising
-    trialmode's trial episodes and lm's damping ladder."""
-    rng = np.random.default_rng(seed)
-    nt, dt = 12, 0.05
-    t = np.arange(nt) * dt
-    amp = rng.uniform(0.2, 3.0, nv)
-    data = (amp[:, None] * np.exp(-6.0 * t)[None, :]
-            + rng.normal(0, 0.8, (nv, nt))).astype(np.float32)
-    coords = np.stack([np.arange(nv), np.zeros(nv), np.zeros(nv)], 1)
-    opts = RunOptions({"model": "exp", "dt": str(dt), "noise": "white",
-                       "max-iterations": "15", "dtype": "single",
-                       "engine-kernel": mode, "save-free-energy": True,
-                       "convergence": det})
-    return VBInference(get_model_class("exp")(opts), opts, data, coords)
-
-
-@pytest.mark.parametrize("det", ["trialmode", "lm"])
-def test_nl_loop_tracks_best_matches_xla(det):
-    """In-kernel trialmode/lm vs the XLA route on a scenario with real
-    F drops. Unlike freduce, the revert target is the in-loop best
-    save, so posteriors AND F are comparable on every non-flip lane
-    (the kernel's b_f is the ELBO captured at save time — the same
-    state the XLA _finalize recomputes f_rev at)."""
-    rx = _det_engines("xla", det).run()
-    eng = _det_engines("pallas-loop", det)
-    assert eng.use_nl_loop and eng.nl_fdet_kind == det
-    assert det in eng.route_description()
-    rp = eng.run()
-
-    # near-threshold |dF| can flip detector decisions between the two
-    # independent F assemblies
-    flip = rx.iterations != rp.iterations
-    assert flip.sum() <= 3, flip.sum()
-    ok = ~flip
-    sd = np.sqrt(np.diagonal(rx.cov[ok], axis1=1, axis2=2))
-    assert np.max(np.abs(rx.means[ok] - rp.means[ok])
-                  / np.maximum(sd, 1e-6)) < 5e-3
-    np.testing.assert_allclose(rx.noise_means[ok], rp.noise_means[ok],
-                               rtol=2e-3)
-    np.testing.assert_allclose(rx.free_energy[ok], rp.free_energy[ok],
-                               rtol=1e-4, atol=4e-3)
-    # heterogeneous stopping exercised
-    assert len(np.unique(rx.iterations)) > 1
-
-
-@pytest.mark.parametrize("det", ["trialmode", "lm"])
-def test_nl_loop_tracks_best_clean_data(det):
-    """Clean-data variant: most lanes converge normally — the
-    tracks_best tier must agree with XLA when the save/revert
-    machinery is mostly idle too (catches protocol over-firing)."""
-    extra = {"convergence": det, "max-iterations": "15"}
-    rx = make_engine(192, "xla", extra, seed=2).run()
-    eng = make_engine(192, "pallas-loop", extra, seed=2)
-    assert eng.use_nl_loop and eng.nl_fdet_kind == det
-    rp = eng.run()
-    flip = rx.iterations != rp.iterations
-    assert flip.sum() <= 2, flip.sum()
-    ok = ~flip
-    sd = np.sqrt(np.diagonal(rx.cov[ok], axis1=1, axis2=2))
-    assert np.max(np.abs(rx.means[ok] - rp.means[ok])
-                  / np.maximum(sd, 1e-6)) < 5e-3
-    np.testing.assert_allclose(rx.free_energy[ok], rp.free_energy[ok],
-                               rtol=1e-4, atol=2e-3)

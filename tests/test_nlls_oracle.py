@@ -65,16 +65,14 @@ def test_nlls_pathological_biexp_basins():
     What a user can rely on, pinned here: (a) every SUCCESSFUL lane
     ends at a stationary point whose residual is at the noise floor —
     basin choice may differ from the reference's, but fit quality
-    does not; (b) the repo's own routes (generic XLA loop vs
-    whole-loop Pallas kernel) land in the same basin on nearly every
-    lane, so results are reproducible within the framework; (c) lanes
+    does not; (b) the float32 and float64 runs land in the same basin
+    on nearly every lane, so results are reproducible within the
+    framework; (c) lanes
     whose fit collapses to a singular Jacobian (amp2 -> 0 or r1 = r2)
     take the bad-voxel containment path (identity-MVN degrade) — the
     same per-voxel failure containment the reference's exception
     handler applies — rather than poisoning neighbours or crashing.
     """
-    import jax
-    jax.config.update("jax_platforms", "cpu")
     from fabber_core_tpu.options import RunOptions
     from fabber_core_tpu.models import get_model_class
     from fabber_core_tpu.inference.nlls import NLLSInference
@@ -90,17 +88,15 @@ def test_nlls_pathological_biexp_basins():
             + 0.05 * rng.standard_normal((nv, nt))).astype(np.float32)
     coords = np.stack([np.arange(nv), np.zeros(nv), np.zeros(nv)], 1)
 
-    def run(mode):
+    def run(dtype):
         opts = RunOptions({"model": "biexp", "dt": str(dt),
-                           "method": "nlls", "dtype": "single",
-                           "engine-kernel": mode})
+                           "method": "nlls", "dtype": dtype})
         eng = NLLSInference(get_model_class("biexp")(opts), opts,
                             data, coords)
         return eng, eng.run()
 
-    eng_x, rx = run("xla")
-    eng_k, rk = run("pallas-loop")
-    assert eng_k.use_nl_kernel
+    eng_x, rx = run("single")
+    eng_k, rk = run("double")
 
     # (c) containment: collapsed lanes are flagged and degraded, the
     # rest carry finite results; the degenerate regime must not take
@@ -126,47 +122,3 @@ def test_nlls_pathological_biexp_basins():
     close = np.all(np.abs(rx.means - rk.means)
                    <= 0.05 + 0.1 * np.abs(rx.means), axis=1)
     assert close[good].mean() > 0.85, close[good].mean()
-
-
-def test_nlls_kernel_two_phase_compaction_bit_identical():
-    """Two-phase straggler compaction (inference/nlls.py run_local):
-    capping phase 1, sorting lanes by convergence state and resuming
-    the stragglers densely packed must be OUTCOME-IDENTICAL to the
-    single-phase kernel — each lane's LM trajectory is deterministic
-    and lane-independent, and the resume kernel continues the exact
-    lambda/cost/iteration carry (ops/fused_nlls.py resume mode)."""
-    import jax
-    jax.config.update("jax_platforms", "cpu")
-    from fabber_core_tpu.options import RunOptions
-    from fabber_core_tpu.models import get_model_class
-    from fabber_core_tpu.inference.nlls import NLLSInference
-
-    rng = np.random.default_rng(11)
-    nv, nt, dt = 160, 50, 0.05
-    t = np.arange(nt) * dt
-    amp = rng.uniform(0.8, 1.2, (nv, 1))
-    # mix easy lanes with near-degenerate ones (rates 1.25x apart) so
-    # phase-1 convergence genuinely straggles on a subset
-    r2 = np.where(rng.uniform(size=(nv, 1)) < 0.2, 1.25, 3.0)
-    data = (amp * np.exp(-1.0 * t)[None, :]
-            + 0.6 * amp * np.exp(-r2 * t[None, :])
-            + 0.04 * rng.standard_normal((nv, nt))).astype(np.float32)
-    coords = np.stack([np.arange(nv), np.zeros(nv), np.zeros(nv)], 1)
-
-    def run(phase1):
-        opts = RunOptions({"model": "biexp", "dt": str(dt),
-                           "method": "nlls", "dtype": "single",
-                           "engine-kernel": "pallas-loop",
-                           "nlls-phase1-iterations": str(phase1)})
-        eng = NLLSInference(get_model_class("biexp")(opts), opts,
-                            data, coords)
-        assert eng.use_nl_kernel
-        return eng.run()
-
-    r1 = run(0)    # single-phase (compaction disabled)
-    r2_ = run(16)  # aggressive cap: most lanes resume in phase 2
-    np.testing.assert_array_equal(r1.means, r2_.means)
-    np.testing.assert_array_equal(r1.cov, r2_.cov)
-    np.testing.assert_array_equal(r1.iterations, r2_.iterations)
-    # the cap must actually bite for the test to mean anything
-    assert int(np.max(r1.iterations)) > 16

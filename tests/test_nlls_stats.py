@@ -102,108 +102,3 @@ def test_masked_timepoints_on_stats_route():
     lsq = np.array([np.polyfit(t[clean], d[clean], 1)[::-1]
                     for d in data])
     np.testing.assert_allclose(res.means, lsq, rtol=1e-5, atol=1e-6)
-
-
-def test_nl_kernel_matches_generic():
-    """Whole-loop Pallas NLLS (ops/fused_nlls.py, interpret mode on
-    CPU) vs the generic per-iteration route: same accept/reject/
-    convergence arithmetic, so parameters and iteration counts match
-    to f32 roundoff (near-tie accept decisions may flip a lane)."""
-    rng = np.random.default_rng(3)
-    nv, nt, dt = 200, 40, 0.05  # 200: exercises voxel edge padding
-    t = np.arange(nt) * dt
-    amp = rng.uniform(0.6, 1.4, nv)
-    r = rng.uniform(0.7, 1.3, nv)
-    data = (amp[:, None] * np.exp(-r[:, None] * t[None, :])
-            + rng.normal(0, 0.05, (nv, nt))).astype(np.float32)
-    coords = np.stack([np.arange(nv), np.zeros(nv), np.zeros(nv)], 1)
-
-    def run(mode):
-        options = RunOptions({"model": "exp", "dt": str(dt),
-                              "method": "nlls", "dtype": "single",
-                              "engine-kernel": mode})
-        eng = NLLSInference(get_model_class("exp")(options), options,
-                            data, coords)
-        return eng, eng.run()
-
-    eng_k, rk = run("pallas-loop")
-    assert eng_k.use_nl_kernel and eng_k.nlls_interpret
-    assert "whole-loop nonlinear NLLS" in eng_k.route_description()
-    eng_x, rx = run("xla")
-    assert not eng_x.use_nl_kernel
-
-    # converged fits agree on every lane; the accept/reject trajectory
-    # flips on roundoff-level cost ties between the two evaluation
-    # orders (blockwise kernel sums vs full-array XLA reductions), so
-    # iteration counts agree only approximately. A lane whose
-    # CFTOL-threshold decision flips diverges by up to one full lambda
-    # ladder (~13 rejected trials to the 1e10 ceiling) plus a short
-    # crawl — and a re-flip doubles that — so the bound is
-    # two-ladder-scale; most lanes agree closely (median).
-    np.testing.assert_allclose(rk.means, rx.means, rtol=2e-3, atol=2e-4)
-    np.testing.assert_allclose(rk.cov, rx.cov, rtol=5e-3, atol=1e-5)
-    its_diff = np.abs(rk.iterations - rx.iterations)
-    assert its_diff.max() <= 30 and np.median(its_diff) <= 4
-    assert not rk.bad_voxels.any()
-    # heterogeneous optimizer effort survived the kernel
-    assert len(np.unique(rk.iterations)) > 1
-
-
-def test_nl_kernel_masked_timepoints():
-    rng = np.random.default_rng(6)
-    nv, nt, dt = 96, 30, 0.05
-    t = np.arange(nt) * dt
-    amp = rng.uniform(0.6, 1.4, nv)
-    data = (amp[:, None] * np.exp(-t)[None, :]
-            + rng.normal(0, 0.05, (nv, nt))).astype(np.float32)
-    data[:, 7] = 1e5  # corrupted, masked below
-    coords = np.stack([np.arange(nv), np.zeros(nv), np.zeros(nv)], 1)
-
-    def run(mode):
-        options = RunOptions({"model": "exp", "dt": str(dt),
-                              "method": "nlls", "dtype": "single",
-                              "engine-kernel": mode, "mt1": "8"})
-        eng = NLLSInference(get_model_class("exp")(options), options,
-                            data, coords)
-        return eng.run()
-
-    rk = run("pallas-loop")
-    rx = run("xla")
-    np.testing.assert_allclose(rk.means, rx.means, rtol=2e-3, atol=2e-4)
-    its_diff = np.abs(rk.iterations - rx.iterations)
-    assert its_diff.max() <= 30 and np.median(its_diff) <= 4
-
-
-def test_nl_kernel_biexp_p4():
-    """P=4 kernel arithmetic (tri indexing, 4-wide solve) on the
-    biexp model — the NLLS-init pipeline's exact shape."""
-    rng = np.random.default_rng(1)
-    nv, nt, dt = 128, 40, 0.02
-    t = np.arange(nt) * dt
-    amp = rng.uniform(0.5, 1.5, nv)
-    data = (amp[:, None] * np.exp(-t)[None, :]
-            + 0.5 * amp[:, None] * np.exp(-5.0 * t)[None, :]
-            + rng.normal(0, 0.05, (nv, nt))).astype(np.float32)
-    coords = np.stack([np.arange(nv), np.zeros(nv), np.zeros(nv)], 1)
-
-    def run(mode):
-        options = RunOptions({"model": "biexp", "dt": str(dt),
-                              "method": "nlls", "dtype": "single",
-                              "engine-kernel": mode})
-        eng = NLLSInference(get_model_class("biexp")(options), options,
-                            data, coords)
-        return eng, eng.run()
-
-    ek, rk = run("pallas-loop")
-    assert ek.use_nl_kernel
-    ex, rx = run("xla")
-    # biexp has an exchange symmetry, so compare the FITTED SIGNAL
-    # rather than raw parameters (either component ordering is the
-    # same minimum)
-    fit_k = np.asarray(ek.evaluate_model(rk.means.T)).T
-    fit_x = np.asarray(ex.evaluate_model(rx.means.T)).T
-    np.testing.assert_allclose(fit_k, fit_x, rtol=5e-3, atol=5e-3)
-    # biexp's exchange degeneracy makes J'J near-singular on lanes
-    # whose second component vanishes: a few bad-posterior flags are
-    # legitimate (inference_nlls.cc:195-214's failure path)
-    assert rk.bad_voxels.sum() <= 5

@@ -55,12 +55,13 @@ def _assert_same(a, b):
      "exp", None),
     # fixed-design stats route (double)
     ({"model": "poly", "degree": "1"}, "poly", "use_stats"),
-    # spectral eigenbasis route (f32, forced off-TPU)
+    # spectral eigenbasis route (f32, forced on the CPU)
     ({"model": "poly", "degree": "1", "dtype": "single",
       "engine-kernel": "spectral"}, "poly", "use_spectral"),
-    # whole-loop fixed-design Pallas kernel (interpret mode on CPU)
+    # spectral route with its in-loop F-based detector
     ({"model": "poly", "degree": "1", "dtype": "single",
-      "engine-kernel": "pallas-loop"}, "poly", "use_loop_kernel"),
+      "engine-kernel": "spectral", "convergence": "pointzeroone"},
+     "poly", "use_spectral_fdet"),
     # whole-loop nonlinear Pallas kernel (interpret mode on CPU)
     ({"model": "exp", "dt": "0.05", "dtype": "single",
       "engine-kernel": "pallas-loop"}, "exp", "use_nl_loop"),
