@@ -64,12 +64,3 @@ class MyExpModel(Model):
         for i in range(self.num):
             means = means.at[:, 2 * i].set(data_max / (self.num + i))
         return means
-
-    def time_signal(self, params, t):
-        """Optional: time-local form unlocks the whole-loop kernel on a
-        GPU (docs/MIGRATION.md "Plugin models and the fast routes")."""
-        tv = t * self.dt
-        sig = params[0] * jnp.exp(-params[1] * tv)
-        for i in range(1, self.num):
-            sig = sig + params[2 * i] * jnp.exp(-params[2 * i + 1] * tv)
-        return sig

@@ -1,6 +1,6 @@
 """fabber_core_tpu — a JAX Bayesian model-fitting framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 physimals/fabber_core: analytic Variational Bayes over nonlinear forward
 models for 4-D timeseries volumes, batched over all voxels at once and
 sharded over device meshes, instead of the reference's serial per-voxel
@@ -30,14 +30,10 @@ _jax.config.update("jax_enable_x64", True)
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 # Persistent compilation cache: JAX_COMPILATION_CACHE_DIR when set (JAX
-# reads it itself), else a fixed directory inside the checkout. Every
-# run builds its engine's programs anew, so a repeated run is only warm
-# if they come back from this cache: keep anything that took half a
-# second (the whole-loop GPU kernel compiles in about one).
+# reads it itself), else a fixed directory inside the checkout.
 if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
     from .devices import compile_cache_dir as _cache_dir
 
     _jax.config.update("jax_compilation_cache_dir", _cache_dir())
-_jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 from .version import __version__  # noqa: E402,F401

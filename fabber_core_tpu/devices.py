@@ -1,6 +1,6 @@
 """Where the program runs: the one place that asks JAX which backend it
-has, how much device memory it may plan for, where compiled programs
-are cached, and how a hand-written kernel is run.
+has, which routes auto prefers there, how much device memory it may
+plan for, and where compiled programs are cached.
 
 Every question is answered at call time, never while a module is
 imported, so a process can still choose its platform after importing
@@ -25,37 +25,13 @@ def backend():
     return jax.default_backend()
 
 
-def on_gpu():
-    return backend() == "gpu"
-
-
-def kernel_route(request, eligible):
-    """Whether the whole-loop Pallas kernel runs, and whether it runs
-    in interpret mode: (use, interpret).
-
-    request is the engine-kernel option. auto takes the kernel on a GPU
-    when the configuration is eligible, compiled for the card.
-    pallas-loop asks for it explicitly: compiled on a GPU, and in
-    interpret mode only on the CPU backend (that is how the tests reach
-    it). Any other request, or an ineligible configuration, takes the
-    XLA routes."""
-    if not eligible or request not in ("auto", "pallas-loop"):
-        return False, False
-    b = backend()
-    if b == "gpu":
-        return True, False
-    if request == "pallas-loop" and b == "cpu":
-        return True, True
-    return False, False
-
-
 def spectral_by_default():
     """Whether auto takes the spectral eigenbasis routes (ops/spectral.py)
     for single-group white-noise fixed designs. They are plain XLA and
     run anywhere; auto takes them on a GPU, where their program measured
     faster than the sufficient-statistics route (PERF.md), and keeps the
     statistics route elsewhere."""
-    return on_gpu()
+    return backend() == "gpu"
 
 
 def device_memory_limit(device=None):

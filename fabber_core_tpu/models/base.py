@@ -118,17 +118,6 @@ class Model:
         """
         return None
 
-    # Models may additionally define
-    #     time_signal(self, params, t) -> signal
-    # where params is a list of model-space parameter arrays (one per
-    # parameter, one entry per voxel) and t the (float) sample index: a
-    # "time-local" form that unlocks the whole-loop nonlinear kernel
-    # (ops/nl_loop.py). It must depend only on the parameters, t and
-    # static model config — per-voxel data/coords/suppdata are not
-    # available inside the kernel. An optional
-    #     time_signal_jac(self, params, t) -> (signal, [P] jacobian)
-    # gives the model-space Jacobian in the same evaluation.
-
 
 # -- registry -------------------------------------------------------------
 

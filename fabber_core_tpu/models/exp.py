@@ -57,31 +57,6 @@ class ExpModel(Model):
             sig = sig + params[2 * i] * jnp.exp(-params[2 * i + 1] * t)
         return sig
 
-    def time_signal(self, params, t):
-        """Time-local form for the whole-loop kernel: params is a list
-        of model-space arrays, t the (traced) sample index."""
-        tv = t * self.dt
-        sig = params[0] * jnp.exp(-params[1] * tv)
-        for i in range(1, self.num):
-            sig = sig + params[2 * i] * jnp.exp(-params[2 * i + 1] * tv)
-        return sig
-
-    def time_signal_jac(self, params, t):
-        """Analytic model-space Jacobian for the whole-loop kernel:
-        ds/da_i = e_i, ds/dr_i = -a_i * t * e_i (the exponentials are
-        shared with the primal — one exp per term instead of a full
-        linear-map replay per parameter)."""
-        tv = t * self.dt
-        sig = None
-        jac = []
-        for i in range(self.num):
-            e = jnp.exp(-params[2 * i + 1] * tv)
-            term = params[2 * i] * e
-            sig = term if sig is None else sig + term
-            jac.append(e)
-            jac.append(-tv * term)
-        return sig, jac
-
     def init_posterior(self, data, means):
         # amp_i starts at data_max / (num + i) (fwdmodel_exp.cc:84-91)
         data_max = jnp.max(data, axis=1)  # [V]

@@ -43,25 +43,3 @@ class PolynomialModel(Model):
     def fixed_design(self, nt):
         t = jnp.arange(1, nt + 1, dtype=jnp.float64)
         return t[:, None] ** jnp.arange(self.degree + 1, dtype=jnp.float64)[None, :]
-
-    def time_signal(self, params, t):
-        """Time-local form (whole-loop kernel): t is the 0-based index."""
-        tv = t + 1.0  # reference samples run 1..T
-        sig = params[0]
-        power = tv
-        for i in range(1, self.degree + 1):
-            sig = sig + params[i] * power
-            power = power * tv
-        return sig
-
-    def time_signal_jac(self, params, t):
-        """Analytic Jacobian: ds/dc_k = t^k (shared with the primal)."""
-        tv = t + 1.0
-        sig = params[0]
-        jac = [jnp.ones_like(tv) * jnp.ones_like(params[0])]
-        power = tv
-        for i in range(1, self.degree + 1):
-            sig = sig + params[i] * power
-            jac.append(power * jnp.ones_like(params[i]))
-            power = power * tv
-        return sig, jac

@@ -24,7 +24,7 @@ rationals per voxel:
 the whole 10-iteration fixed point costs less than reading the
 sufficient statistics. The P x P posterior (means/prec/cov in the
 original basis) is reconstructed ONCE from the final phi. Everything
-is plain XLA (the loop body fuses; no Pallas needed).
+is plain XLA (the loop body fuses).
 
 The fixed point is algebraically identical to the stats route; only
 the floating-point evaluation order differs, so results match to

@@ -259,9 +259,9 @@ def shard_engine_arrays(engine, mesh):
         engine.neigh = jax.device_put(engine.neigh, vox_first)
         engine.neigh2 = jax.device_put(engine.neigh2, vox_first)
     engine.options.set("voxel-chunk-size", str(engine.nvoxels))
-    # Pallas kernels dispatch per-shard via shard_map (inference/vb.py
-    # _shard_kernel); the padded voxel count always divides the mesh
-    # here, so eligibility is unchanged.
+    # the spectral routes dispatch per shard via shard_map
+    # (inference/vb.py _shard_kernel); the padded voxel count always
+    # divides the mesh here, so eligibility is unchanged.
     engine.mesh = mesh
     return mesh
 

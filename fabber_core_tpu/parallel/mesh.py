@@ -79,8 +79,8 @@ def shard_engine(engine, devices=None, log=None):
         engine.neigh2 = jax.device_put(engine.neigh2, vox_first)
     # chunking would fight the sharding; a sharded run is one pass
     engine.options.set("voxel-chunk-size", str(engine.nvoxels))
-    # Pallas kernels are single-device programs: they dispatch per-shard
-    # via shard_map (inference/vb.py _shard_kernel); the device subset
-    # above always divides the voxel count
+    # the spectral routes dispatch per shard via shard_map
+    # (inference/vb.py _shard_kernel); the device subset above always
+    # divides the voxel count
     engine.mesh = mesh
     return mesh

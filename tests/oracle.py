@@ -107,3 +107,25 @@ def free_energy(y, m, prec, cov, prior_mean, prior_prec, centre, offset,
     part5 = -0.5 * np.sum(np.diag(cov) * prior_prec)
 
     return -e_theta - e_phi + part0 + part2 + part3 + part4 + part5 + part9
+
+
+# the detectors start from a huge negative previous F
+# (inference/convergence.py), so their first test never stops a lane
+SENTINEL = float(np.finfo(np.float32).min)
+
+
+def replay_detector(f_history, max_its, tol, freduce):
+    """FchangeDetector / FreduceDetector (convergence.cc) replayed on one
+    lane's F history (vb_voxel's "F_history"): (updates made, reported
+    iteration count, reverted)."""
+    prev, its = SENTINEL, 0
+    for k, f in enumerate(f_history):
+        diff = f - prev
+        reduced = freduce and diff < 0
+        small = abs(diff) < tol
+        if not (reduced or small):
+            its += 1
+        if reduced or small or its >= max_its:
+            return k + 1, its, reduced
+        prev = f
+    return len(f_history), its, False

@@ -16,9 +16,6 @@ from fabber_core_tpu.models import get_model_class
 from fabber_core_tpu.noise.white import parse_noise_pattern
 from fabber_core_tpu.options import RunOptions
 
-SENTINEL = float(np.finfo(np.float32).min)
-
-
 def poly_data(nv, nt, seed, degree=1):
     rng = np.random.default_rng(seed)
     t = np.arange(1, nt + 1)
@@ -148,22 +145,6 @@ def test_generic_route_noise_configs_match_oracle(case):
                      "double")
 
 
-def replay_detector(f_history, max_its, tol, freduce):
-    """FchangeDetector / FreduceDetector on one lane's F history:
-    (updates made, reported iteration count, reverted)."""
-    prev, its = SENTINEL, 0
-    for k, f in enumerate(f_history):
-        diff = f - prev
-        reduced = freduce and diff < 0
-        small = abs(diff) < tol
-        if not (reduced or small):
-            its += 1
-        if reduced or small or its >= max_its:
-            return k + 1, its, reduced
-        prev = f
-    return len(f_history), its, False
-
-
 @pytest.mark.parametrize("det", ["pointzeroone", "freduce"])
 @pytest.mark.parametrize("route", ["stats", "spectral", "generic"])
 def test_f_detectors_match_oracle(route, det):
@@ -182,7 +163,7 @@ def test_f_detectors_match_oracle(route, det):
     flips = 0
     for v in range(data.shape[0]):
         full = oracle_for(eng, model, data, v, max_its + 2)
-        n, its, reverted = replay_detector(full["F_history"], max_its,
+        n, its, reverted = oracle.replay_detector(full["F_history"], max_its,
                                            0.01, det == "freduce")
         if its != res.iterations[v]:
             flips += 1   # |dF| within float32 roundoff of the threshold
@@ -252,7 +233,7 @@ def test_ar_detectors_match_oracle(nphis, det):
             return oracle_ar.ar_vb_voxel(
                 data[v], design, np.zeros(2), np.full(2, 1e-12), n,
                 nphis=nphis, compute_f=True)
-        n, its, reverted = replay_detector(orc(max_its + 2)["F_history"],
+        n, its, reverted = oracle.replay_detector(orc(max_its + 2)["F_history"],
                                            max_its, 0.01, det == "freduce")
         assert its == res.iterations[v]
         if reverted:
@@ -265,7 +246,7 @@ def test_ar_detectors_match_oracle(nphis, det):
 
 
 @pytest.mark.parametrize("route", ["stats", "spectral", "generic",
-                                   "kernel"])
+                                   "generic-single"])
 def test_streamed_windows_match_oracle(route):
     """Volumes larger than one voxel window stream the windows inside
     one compiled program (inference/vb.py compiled_streamed); every
@@ -276,11 +257,36 @@ def test_streamed_windows_match_oracle(route):
             else exp_data(nv, nt, seed=2))
     dtype = "double" if route in ("stats", "generic") else "single"
     extra = {"voxel-chunk-size": "16", "dtype": dtype,
-             "engine-kernel": {"spectral": "spectral",
-                               "kernel": "pallas-loop"}.get(route, "xla")}
+             "engine-kernel": "spectral" if route == "spectral" else "xla"}
     eng, res = run(model, data, extra)
     assert eng._chunk_size() < nv
-    assert eng.use_nl_loop == (route == "kernel")
     assert eng.use_spectral == (route == "spectral")
     for v in (0, 15, 16, 31, 32, nv - 1):
         assert_close(res, oracle_for(eng, model, data, v, 6), v, dtype)
+
+
+@pytest.mark.parametrize("det", ["maxits", "pointzeroone", "freduce",
+                                 "trialmode"])
+def test_spectral_routes_sharded_equal_one_device(det):
+    """The spectral routes run per shard under shard_map on the 8-device
+    CPU mesh, padded to the mesh, and match the one-device run lane for
+    lane."""
+    from fabber_core_tpu.parallel import distributed as dist
+    nv, nt = 203, 30
+    data = poly_data(nv, nt, seed=12).astype(np.float32)
+    o = RunOptions({"model": "poly", "degree": "1", "noise": "white",
+                    "dtype": "single", "engine-kernel": "spectral",
+                    "convergence": det, "max-iterations": "8",
+                    "save-free-energy": True})
+    model = get_model_class("poly")(o)
+    coords = np.stack([np.arange(nv), np.zeros(nv), np.zeros(nv)], 1)
+    eng, v_real = dist.build_engine_sharded(
+        VBInference, model, o, data, coords, mesh=dist.global_voxel_mesh())
+    assert eng.mesh.devices.size == 8
+    assert eng.use_spectral or eng.use_spectral_fdet
+    r8 = dist.slice_result(eng.run(), v_real)
+    r1 = VBInference(model, o, data, coords).run()
+    np.testing.assert_array_equal(r8.iterations, r1.iterations)
+    np.testing.assert_allclose(r8.means, r1.means, rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(r8.noise_means, r1.noise_means, rtol=1e-6)
+    np.testing.assert_allclose(r8.free_energy, r1.free_energy, rtol=1e-6)

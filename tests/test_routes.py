@@ -32,32 +32,50 @@ def build(extra, model="exp", nv=64, nt=20):
     return VBInference(get_model_class(model)(o), o, data, coords)
 
 
-@pytest.mark.parametrize("value", ["pallas", "pallas-whole",
-                                   "spectral-whole", "fused"])
+@pytest.mark.parametrize("value", ["pallas", "pallas-loop",
+                                   "pallas-whole", "spectral-whole",
+                                   "fused"])
 def test_removed_engine_kernel_values_rejected(value):
     with pytest.raises(InvalidOptionValue) as e:
         build({"engine-kernel": value})
     for kept in ENGINE_KERNELS:
         assert kept in str(e.value)
-    assert ENGINE_KERNELS == ("auto", "pallas-loop", "spectral", "xla")
+    assert ENGINE_KERNELS == ("auto", "spectral", "xla")
 
 
-# (backend, request, eligible) -> (use the kernel, interpret mode)
-ROUTE_TABLE = [
-    (b, r, e, (e and r in ("auto", "pallas-loop") and b == "gpu")
-     or (e and r == "pallas-loop" and b == "cpu"),
-     e and r == "pallas-loop" and b == "cpu")
-    for b in ("cpu", "gpu") for r in ENGINE_KERNELS for e in (True, False)]
+STATS, SPECTRAL = "sufficient-statistics route", "spectral eigenbasis"
+GENERIC = "generic-Jacobian XLA route"
+# configuration -> (model, extra options, route where no spectral
+# route is taken, whether a spectral route can serve it)
+CONFIGS = {
+    "poly": ("poly", {}, STATS, True),
+    "poly-p001": ("poly", {"convergence": "pointzeroone"}, STATS, True),
+    "poly-pattern": ("poly", {"noise-pattern": "12"}, STATS, False),
+    "exp": ("exp", {}, GENERIC, False),
+}
 
 
-@pytest.mark.parametrize("backend,request_,eligible,use,interpret",
-                         ROUTE_TABLE)
-def test_kernel_route(monkeypatch, backend, request_, eligible, use,
-                      interpret):
-    """Interpret mode only on the CPU under an explicit pallas-loop; on
-    a GPU the kernel always compiles for the card."""
+def expected_route(backend, request_, config):
+    _, _, plain, spectral_ok = CONFIGS[config]
+    wants = request_ == "spectral" or (request_ == "auto"
+                                       and backend == "gpu")
+    return SPECTRAL if spectral_ok and wants else plain
+
+
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+@pytest.mark.parametrize("request_", ENGINE_KERNELS)
+@pytest.mark.parametrize("backend", ["cpu", "gpu"])
+def test_route_table(monkeypatch, backend, request_, config):
+    """The route each engine-kernel request takes on each backend:
+    auto takes the spectral routes on a GPU only, spectral takes them
+    wherever the configuration allows, xla never; every route is XLA
+    and runs on any backend (the engine is only built, not run)."""
     monkeypatch.setattr(devices, "backend", lambda: backend)
-    assert devices.kernel_route(request_, eligible) == (use, interpret)
+    model, extra, _, _ = CONFIGS[config]
+    eng = build({**extra, "engine-kernel": request_}, model=model)
+    route = eng.route_description()
+    assert expected_route(backend, request_, config) in route
+    assert "XLA" in route
 
 
 @pytest.mark.parametrize("backend,expected", [("cpu", False),
@@ -65,7 +83,6 @@ def test_kernel_route(monkeypatch, backend, request_, eligible, use,
 def test_spectral_by_default(monkeypatch, backend, expected):
     monkeypatch.setattr(devices, "backend", lambda: backend)
     assert devices.spectral_by_default() is expected
-    assert devices.on_gpu() is expected
 
 
 @pytest.mark.parametrize("model,extra,route", [
@@ -77,13 +94,12 @@ def test_spectral_by_default(monkeypatch, backend, expected):
 def test_auto_routes_on_cpu(model, extra, route):
     eng = build(extra, model=model)
     assert route in eng.route_description()
-    assert not (eng.use_nl_loop or eng.use_spectral
-                or eng.use_spectral_fdet)
+    assert not (eng.use_spectral or eng.use_spectral_fdet)
 
 
 @pytest.mark.parametrize("model,extra,route", [
-    ("exp", {}, "nonlinear Pallas kernel (compiled for the GPU)"),
-    ("biexp", {"convergence": "freduce"}, "in-kernel freduce detector"),
+    ("exp", {}, "generic-Jacobian XLA route"),
+    ("biexp", {"convergence": "freduce"}, "generic-Jacobian XLA route"),
     ("exp", {"convergence": "trialmode"}, "generic-Jacobian XLA route"),
     ("poly", {}, "spectral eigenbasis fixed point (XLA)"),
     ("poly", {"convergence": "trialmode"}, "in-loop F-based"),
@@ -103,7 +119,7 @@ def test_xla_request_takes_no_fast_route(monkeypatch):
     for model in ("exp", "poly"):
         eng = build({"engine-kernel": "xla"}, model=model)
         assert "XLA" in eng.route_description()
-        assert not (eng.use_nl_loop or eng.use_spectral)
+        assert not (eng.use_spectral or eng.use_spectral_fdet)
 
 
 class FakeDevice:
@@ -201,3 +217,33 @@ def test_package_import_places_cache(tmp_path, set_var):
                          check=True).stdout.strip().splitlines()[-1]
     assert out == (str(tmp_path) if set_var
                    else os.path.join(REPO, ".jax_cache"))
+
+
+@pytest.mark.gpu
+def test_gpu_auto_route_is_true_float32(gpu):
+    """On a card, auto takes the spectral route for a float32 poly fit,
+    and its statistics carry float32 roundoff, not TF32's ~1e-3
+    (chip_smoke.py's api-poly phase checks the same at full width)."""
+    import oracle
+    nv, nt = 4096, 106
+    rng = np.random.default_rng(0)
+    t = np.arange(1, nt + 1, dtype=np.float64)
+    design = t[:, None] ** np.arange(3)[None, :]
+    c = np.stack([rng.uniform(-1, 1, nv), rng.uniform(-0.1, 0.1, nv),
+                  rng.uniform(-1e-3, 1e-3, nv)], 1)
+    data = c @ design.T + 0.1 * rng.standard_normal((nv, nt))
+    o = RunOptions({"model": "poly", "degree": "2", "noise": "white",
+                    "dtype": "single", "max-iterations": "10"})
+    coords = np.stack([np.arange(nv), np.zeros(nv), np.zeros(nv)], 1)
+    eng = VBInference(get_model_class("poly")(o), o,
+                      data.astype(np.float32), coords)
+    assert eng.use_spectral
+    res = eng.run()
+    for v in range(0, nv, 512):
+        ref = oracle.vb_voxel(
+            lambda p: design @ p, lambda p: design,
+            data[v].astype(np.float32).astype(np.float64), np.zeros(3),
+            np.full(3, 1e-12), np.zeros(3), np.full(3, 1e12), 10,
+            compute_f=False)
+        sd = np.sqrt(np.diag(ref["cov"]))
+        assert np.max(np.abs(res.means[v] - ref["means"]) / sd) < 1e-2

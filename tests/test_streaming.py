@@ -62,9 +62,9 @@ def _assert_same(a, b):
     ({"model": "poly", "degree": "1", "dtype": "single",
       "engine-kernel": "spectral", "convergence": "pointzeroone"},
      "poly", "use_spectral_fdet"),
-    # whole-loop nonlinear Pallas kernel (interpret mode on CPU)
+    # generic-Jacobian route in float32 with an F-based detector
     ({"model": "exp", "dt": "0.05", "dtype": "single",
-      "engine-kernel": "pallas-loop"}, "exp", "use_nl_loop"),
+      "convergence": "pointzeroone"}, "exp", None),
 ])
 def test_streamed_equals_host_chunked(extra, kind, route_attr):
     rng = np.random.default_rng(7)
